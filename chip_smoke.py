@@ -10,15 +10,20 @@ JSON line each; any failure ends the run non-zero:
 1. build — compiles every rsrgan_tpu_torch/csrc/*.cu with nvcc for sm_90a
    (one nvcc per source, all started together) and loads them (ctypes).
 2. kernel / kernel_small — the wavefront kernel in decode mode (K4,
-   save_acts=False) against its plain twin at res_lstm_l's full width
-   (L=4, U=760, P=257, B=16, T=512, ragged lengths) in f32 and bf16, and
-   at small odd shapes in both wirings.
+   save_acts=False, the resident kernel of csrc/resident.cu) against its
+   plain twin at res_lstm_l's full width (L=4, U=760, P=257, T=512,
+   ragged lengths) at B=16, 1 and 64, in f32 and bf16, with the streaming
+   kernel it replaced (csrc/wavefront_fwd.cu) timed beside it; then at
+   small odd shapes (SMALL) in both wirings. Every resident case is also
+   launched twice and must give the same bits.
 3. kernels_train — every training kernel against its plain twin, every
    output stream, in f32 and bf16, at the shapes the train step gives
    it: K4 in train mode (save_acts=True) at G's width, B=16, T=500; K1
    (the D forward) at 16 and 32 rows; K2 at G's width (16 rows) and D's
-   (16 rows); K3 at D's width, 32 rows. Then all four at small odd
-   shapes (U=13, P=9, B=3 with a zero-length row).
+   (16 rows); K3 at D's width, 32 rows; the resident kernels (K4, K2)
+   also for bit-equal relaunches and beside the streaming kernels they
+   replaced. Then all four at small odd shapes (U=13, P=9 and U=200,
+   P=40; B=1, 3, 33 and 64; a zero-length row).
 4. grad — gradients of the full-width G stack and of D (16 and 32 rows)
    through the kernels' autograd Functions against the eager cell under
    autograd, f32.
@@ -53,6 +58,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "rsrgan_tpu_torch/csrc/wavefront_fwd.cu"
+RESIDENT = "rsrgan_tpu_torch/csrc/resident.cu"
 REPLACES = "rsrgan_tpu/ops/pallas_wavefront.py:48"
 
 # res_lstm_l at full width; B is bench.py's batch, T a 128-padded length
@@ -178,49 +184,86 @@ def kernel_inputs(seed, L_, U_, P_, B_, T_, lengths, cdt, device):
             wi.contiguous(), wf.contiguous(), wo.contiguous())
 
 
-def phase_kernel(dtype_name: str) -> dict:
+def same_bits(fn) -> bool:
+    """Two launches on the same inputs give bit-equal outputs."""
     import torch
-    from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd,
-                                                lstm_wavefront_fwd_reference,
-                                                wavefront_grid)
+    a, b = fn(), fn()
+    a, b = (a,) if torch.is_tensor(a) else a, (b,) if torch.is_tensor(b) else b
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def resident_grid(plan) -> dict:
+    return {"grid": plan.blocks, "design": "resident",
+            "smem_bytes": plan.smem,
+            "weights_resident": plan.weights_resident()}
+
+
+def phase_kernel(dtype_name: str) -> dict:
+    """K4 decode at B=16 (the main path's batch), then B=1 and B=64
+    (--decode_batch_size 1 and 64), each against its twin; the streaming
+    kernel (csrc/wavefront_fwd.cu) timed on the same inputs at B=16."""
+    import torch
+    from rsrgan_tpu_torch.ops import wavefront as wf
     cdt = getattr(torch, dtype_name)
-    args = kernel_inputs(1, L, U, P, B, T, LENGTHS, cdt, "cuda")
-    got = lstm_wavefront_fwd(*args, residual=True)
-    torch.cuda.synchronize()
-    want = lstm_wavefront_fwd_reference(*args, residual=True)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    finite = bool(torch.isfinite(got).all())
-    ms = cuda_time_ms(lambda: lstm_wavefront_fwd(*args, residual=True), 10)
-    plain_ms = cuda_time_ms(
-        lambda: lstm_wavefront_fwd_reference(*args, residual=True), 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {"phase": "kernel", "dtype": dtype_name, "L": L, "U": U, "P": P,
-           "B": B, "T": T, "grid": wavefront_grid(B, L, U, P,
-                                                  cdt == torch.bfloat16),
-           "max_abs_err": err, "tol": TOL[dtype_name],
-           "max_abs_ref": float(want.abs().max()), "ms": ms,
-           "plain_ms": plain_ms, "finite": finite,
-           "ok": finite and err <= TOL[dtype_name]}
+           "T": T, "tol": TOL[dtype_name], "by_batch": {}}
+    ok = True
+    for rows in (B, 1, 64):
+        lens = (LENGTHS * 4)[:rows]
+        args = kernel_inputs(1, L, U, P, rows, T, lens, cdt, "cuda")
+        run = lambda: wf.lstm_wavefront_fwd(*args, residual=True)  # noqa
+        got = run()
+        torch.cuda.synchronize()
+        want = wf.lstm_wavefront_fwd_reference(*args, residual=True)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        r = {"max_abs_err": err, "max_abs_ref": float(want.abs().max()),
+             "ms": cuda_time_ms(run, 10), "finite": finite,
+             "deterministic": same_bits(run),
+             **resident_grid(wf.resident_plan(rows, L, U, P, cdt, sms))}
+        if rows == B:
+            r["plain_ms"] = cuda_time_ms(
+                lambda: wf.lstm_wavefront_fwd_reference(*args,
+                                                        residual=True), 1)
+            r["streaming_ms"] = cuda_time_ms(
+                lambda: wf._launch(*args, residual=True, save_acts=False), 5)
+            out.update(B=B, **r)
+        out["by_batch"][rows] = r
+        ok = ok and finite and err <= TOL[dtype_name] and r["deterministic"]
+    out["ok"] = ok
     emit(out)
     return out
 
 
+# Odd shapes of the resident kernels: U and P not multiples of the mma
+# tiles, units that do not divide the grid evenly (200 over 33 blocks per
+# layer), B = 1, 3, 33 and 64, L = 1 and 3 without the residual.
+SMALL = [(4, True, 13, 9, 3), (3, False, 13, 9, 3), (1, False, 13, 9, 1),
+         (4, True, 200, 40, 33), (3, False, 200, 40, 64),
+         (1, True, 200, 40, 3)]
+
+
 def phase_kernel_small() -> dict:
-    """Odd sizes (U, P not multiples of 32; B not a multiple of 8; a row
-    of length 0) in both wirings, f32."""
+    """K4 decode mode at the SMALL shapes, every length row ragged and one
+    of length 0, f32, each also checked for bit-equal relaunches."""
     import torch
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd,
                                                 lstm_wavefront_fwd_reference)
-    errs = {}
-    for L_, residual in ((4, True), (3, False)):
-        args = kernel_inputs(2, L_, 13, 9, 3, 17, [17, 11, 0],
+    errs, ok = {}, True
+    for L_, residual, U_, P_, B_ in SMALL:
+        args = kernel_inputs(2, L_, U_, P_, B_, 17, ([17, 11, 0] * 22)[:B_],
                              torch.float32, "cuda")
-        got = lstm_wavefront_fwd(*args, residual=residual)
+        run = lambda: lstm_wavefront_fwd(*args, residual=residual)  # noqa
+        got = run()
         want = lstm_wavefront_fwd_reference(*args, residual=residual)
         torch.cuda.synchronize()
-        errs[f"L{L_}_residual_{residual}"] = float((got - want).abs().max())
+        tag = f"L{L_}_residual_{residual}_U{U_}_B{B_}"
+        errs[tag] = float((got - want).abs().max())
+        ok = ok and errs[tag] <= 1e-5 and same_bits(run)
     out = {"phase": "kernel_small", "max_abs_err": errs, "tol": 1e-5,
-           "ok": all(e <= 1e-5 for e in errs.values())}
+           "ok": ok}
     emit(out)
     return out
 
@@ -326,9 +369,13 @@ def torch_isfinite(t) -> bool:
     return bool(torch.isfinite(t.float()).all())
 
 
-def timed(name, dtype_name, fn, twin, names, reps=5, tol=None, **extra):
+def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
+          streaming=None, **extra):
     """Run kernel and twin on the same inputs, compare every stream, time
-    both (kernel over ``reps`` launches, twin once); emit the phase."""
+    both (kernel over ``reps`` launches, twin once); a redesigned kernel
+    (``streaming``: the kernel it replaced, which streams its weights
+    from L2, on the same inputs) is also checked for bit-equal relaunches
+    and timed beside it; emit the phase."""
     import torch
     got = fn()
     torch.cuda.synchronize()
@@ -337,6 +384,10 @@ def timed(name, dtype_name, fn, twin, names, reps=5, tol=None, **extra):
     errs, refs, ok = compare_streams(names, got, want, dtype_name, tol)
     ms = cuda_time_ms(fn, reps)
     plain_ms = cuda_time_ms(twin, 1)
+    if streaming is not None:
+        extra["deterministic"] = same_bits(fn)
+        extra["streaming_ms"] = cuda_time_ms(streaming, reps)
+        ok = ok and extra["deterministic"]
     out = {"phase": "kernels_train", "kernel": name, "dtype": dtype_name,
            **extra, "max_abs_err": errs, "max_abs_ref": refs,
            "tol": TOL[dtype_name] if tol is None else tol,
@@ -345,14 +396,25 @@ def timed(name, dtype_name, fn, twin, names, reps=5, tol=None, **extra):
     return out
 
 
+def streaming_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
+    """The streaming K2 kernel (csrc/lstm_bwd.cu, acc=0), for timing
+    beside the resident one."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    return ls._launch_bwd(acts, lengths, dout, c_hist, None, w_h, proj, wi,
+                          wf, wo, acc=False)
+
+
 def phase_kernels_train(dtype_name: str) -> list:
     """K4 train mode, K1, K2 (G and D) and K3 at the train step's shapes."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import wavefront as wf
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd_reference,
                                                 lstm_wavefront_fwd_train,
                                                 wavefront_grid)
     cdt = getattr(torch, dtype_name)
+    bf16 = cdt == torch.bfloat16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
     streams4 = ("taps", "c_hist", "h_hist", "acts")
     args = kernel_inputs(5, L, U, P, B, TT, TRAIN_LENGTHS, cdt, "cuda")
@@ -360,8 +422,11 @@ def phase_kernels_train(dtype_name: str) -> list:
               lambda: lstm_wavefront_fwd_train(*args, residual=True),
               lambda: lstm_wavefront_fwd_reference(*args, residual=True,
                                                    save_acts=True),
-              streams4, L=L, U=U, P=P, B=B, T=TT,
-              grid=wavefront_grid(B, L, U, P, cdt == torch.bfloat16),
+              streams4,
+              streaming=lambda: wf._launch(*args, residual=True,
+                                           save_acts=True),
+              L=L, U=U, P=P, B=B, T=TT,
+              **resident_grid(wf.resident_plan(B, L, U, P, cdt, sms)),
               **wavefront_bound(L, U, P, B, TT, TRAIN_LENGTHS, dtype_name,
                                 train=True))
     results.append(r)
@@ -378,8 +443,8 @@ def phase_kernels_train(dtype_name: str) -> list:
     results.append(timed(
         "lstm_bwd", dtype_name, lambda: ls.lstm_bwd(*g_args),
         lambda: ls.lstm_bwd_reference(*g_args), ("dxw", "m", "dh"),
-        net="G", U=U, P=P, B=B, T=TT,
-        grid=ls.lstm_bwd_grid(B, U, P, False, cdt == torch.bfloat16),
+        streaming=lambda: streaming_bwd(*g_args), net="G", U=U, P=P, B=B, T=TT,
+        **resident_grid(ls.resident_plan(B, U, P, cdt, sms)),
         **bwd_bound(U, P, B, TT, TRAIN_LENGTHS, dtype_name, acc=False)))
 
     # D: K1 at 16 and 32 rows, K2 at 16, K3 at 32
@@ -397,7 +462,7 @@ def phase_kernels_train(dtype_name: str) -> list:
             "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
             lambda: ls.lstm_fwd_reference(*k1_args), streams4,
             net="D", U=DU, P=DP, B=rows, T=TT,
-            grid=wavefront_grid(rows, 1, DU, DP, cdt == torch.bfloat16),
+            grid=wavefront_grid(rows, 1, DU, DP, bf16),
             **k1_bound(DU, DP, rows, TT, d_lens, dtype_name)))
         out, c_h, h_h, d_acts = ls.lstm_fwd(*k1_args)
         d_dout = torch.from_numpy(
@@ -408,9 +473,10 @@ def phase_kernels_train(dtype_name: str) -> list:
             results.append(timed(
                 "lstm_bwd", dtype_name, lambda: ls.lstm_bwd(*common, *weights),
                 lambda: ls.lstm_bwd_reference(*common, *weights),
-                ("dxw", "m", "dh"), net="D", U=DU, P=DP, B=rows, T=TT,
-                grid=ls.lstm_bwd_grid(rows, DU, DP, False,
-                                      cdt == torch.bfloat16),
+                ("dxw", "m", "dh"),
+                streaming=lambda: streaming_bwd(*common, *weights),
+                net="D", U=DU, P=DP, B=rows, T=TT,
+                **resident_grid(ls.resident_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=False)))
         else:
             results.append(timed(
@@ -419,16 +485,17 @@ def phase_kernels_train(dtype_name: str) -> list:
                 lambda: ls.lstm_bwd_acc_reference(*common, h_h, *weights),
                 ("dxw", "dwh", "dproj", "dbias", "dwi", "dwf", "dwo"),
                 net="D", U=DU, P=DP, B=rows, T=TT,
-                grid=ls.lstm_bwd_grid(rows, DU, DP, True,
-                                      cdt == torch.bfloat16),
+                grid=ls.lstm_bwd_grid(rows, DU, DP, True, bf16),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=True)))
     return results
 
 
 def phase_kernels_train_small() -> dict:
-    """The training kernels at odd sizes (U, P not multiples of 32, B not
-    a multiple of 8, a zero-length row), f32, absolute 1e-5 scaled as
-    above; K3 also at 3 rows (the kernel takes any row count)."""
+    """The training kernels at odd sizes (K4 train mode at the SMALL
+    shapes; K1, K2 and K3 at U=13, P=9 with 1, 3, 33 and 64 rows, K2 also
+    at U=200, P=40: units that do not divide the grid), f32, a zero-length
+    row, absolute 1e-5 scaled as above; the resident kernels (K4, K2) also
+    checked for bit-equal relaunches. K3 takes any row count."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd_reference,
@@ -442,33 +509,45 @@ def phase_kernels_train_small() -> dict:
         errs[tag] = max(e.values())
         ok = ok and good
 
-    for L_, residual in ((4, True), (3, False)):
-        args = kernel_inputs(8, L_, 13, 9, 3, T_, lens, f32, "cuda")
-        check(f"wavefront_train_L{L_}_residual_{residual}",
-              ("taps", "c_hist", "h_hist", "acts"),
-              lstm_wavefront_fwd_train(*args, residual=residual),
+    def deterministic(tag, fn):
+        nonlocal ok
+        errs[tag + "_same_bits"] = same_bits(fn)
+        ok = ok and errs[tag + "_same_bits"]
+
+    for L_, residual, U_, P_, B_ in SMALL:
+        args = kernel_inputs(8, L_, U_, P_, B_, T_, (lens * 22)[:B_], f32,
+                             "cuda")
+        tag = f"wavefront_train_L{L_}_residual_{residual}_U{U_}_B{B_}"
+        run = lambda: lstm_wavefront_fwd_train(*args,  # noqa: E731
+                                               residual=residual)
+        check(tag, ("taps", "c_hist", "h_hist", "acts"), run(),
               lstm_wavefront_fwd_reference(*args, residual=residual,
                                            save_acts=True))
+        deterministic(tag, run)
     rng = np.random.default_rng(9)
-    for rows in (3, 33):
-        row_lens = (lens * 11)[:rows]
-        prm = layer_params(rng, 9, 13, 9, f32, "cuda")
+    for rows, U_, P_ in ((1, 13, 9), (3, 13, 9), (33, 13, 9), (64, 13, 9),
+                         (16, 200, 40)):
+        row_lens = (lens * 22)[:rows]
+        prm = layer_params(rng, P_, U_, P_, f32, "cuda")
         x = torch.from_numpy(
-            rng.normal(size=(T_, rows, 9)).astype(np.float32)).cuda()
+            rng.normal(size=(T_, rows, P_)).astype(np.float32)).cuda()
         lens_t = torch.tensor(row_lens, dtype=torch.int32, device="cuda")
         k1_args = (x @ prm["w_x"], lens_t, prm["w_h"], prm["proj"],
                    prm["bias"], prm["wi"], prm["wf"], prm["wo"])
         got = ls.lstm_fwd(*k1_args)
-        check(f"lstm_fwd_B{rows}", ("out", "c_hist", "h_hist", "acts"), got,
+        tag = f"U{U_}_B{rows}"
+        check(f"lstm_fwd_{tag}", ("out", "c_hist", "h_hist", "acts"), got,
               ls.lstm_fwd_reference(*k1_args))
         dout = torch.from_numpy(
-            rng.normal(size=(T_, rows, 9)).astype(np.float32)).cuda()
+            rng.normal(size=(T_, rows, P_)).astype(np.float32)).cuda()
         common = (got[3], lens_t, dout, got[1])
         weights = k1_args[2:4] + k1_args[5:]
-        check(f"lstm_bwd_B{rows}", ("dxw", "m", "dh"),
+        check(f"lstm_bwd_{tag}", ("dxw", "m", "dh"),
               ls.lstm_bwd(*common, *weights),
               ls.lstm_bwd_reference(*common, *weights))
-        check(f"lstm_bwd_acc_B{rows}", ("dxw", "dwh", "dproj", "dbias",
+        deterministic(f"lstm_bwd_{tag}",
+                      lambda: ls.lstm_bwd(*common, *weights))
+        check(f"lstm_bwd_acc_{tag}", ("dxw", "dwh", "dproj", "dbias",
                                         "dwi", "dwf", "dwo"),
               ls.lstm_bwd_acc(*common, got[2], *weights),
               ls.lstm_bwd_acc_reference(*common, got[2], *weights))
@@ -666,7 +745,9 @@ def profile_train_step(tr_list: str) -> dict:
             by_kernel[e.key[:80]] = us / 1e3
     device_ms = sum(by_kernel.values())
     ours = {name: sum(v for k, v in by_kernel.items() if name in k)
-            for name in ("wavefront_fwd_kernel", "lstm_bwd_kernel")}
+            for name in ("wavefront_resident_kernel",
+                         "lstm_bwd_resident_kernel", "wavefront_fwd_kernel",
+                         "lstm_bwd_kernel")}
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     return {"T": int(batch.inputs.shape[1]), "B": B,
             "true_frames": int(batch.lengths.sum()), "wall_ms": wall_ms,
@@ -840,6 +921,8 @@ PHASES = ("build", "kernel", "kernels_train", "grad", "train", "decode")
 
 
 def kernel_entry(name, source, replaces, launches, result, bound_keys):
+    extra = {k: result[k] for k in ("grid", "design", "streaming_ms")
+             if k in result}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": (max(result["max_abs_err"].values())
@@ -851,7 +934,7 @@ def kernel_entry(name, source, replaces, launches, result, bound_keys):
             # no single PyTorch call computes these functions: the cell
             # has peepholes and a projection, which torch.nn.LSTM and
             # cuDNN do not (ROADMAP.md)
-            "library_ms": None}
+            "library_ms": None, **extra}
 
 
 def kernels_line(results: dict) -> dict:
@@ -861,7 +944,7 @@ def kernels_line(results: dict) -> dict:
     bwd = "rsrgan_tpu_torch/csrc/lstm_bwd.cu"
     dec = results["kernel"]["bfloat16"]
     entries = [kernel_entry(
-        "wavefront_fwd (decode, save_acts=False)", SOURCE, REPLACES,
+        "wavefront_fwd (decode, save_acts=False)", RESIDENT, REPLACES,
         results["decode"]["launches"], dec,
         wavefront_bound(L, U, P, B, T, LENGTHS, "bfloat16", train=False))]
     if "kernels_train" in results:
@@ -871,11 +954,14 @@ def kernels_line(results: dict) -> dict:
             by_name.setdefault((r["kernel"], r.get("net")), r)
         for key, label, source, replaces in (
                 (("wavefront_fwd_train", None),
-                 "wavefront_fwd (train, save_acts=True)", SOURCE, REPLACES),
+                 "wavefront_fwd (train, save_acts=True)", RESIDENT,
+                 REPLACES),
                 (("lstm_fwd", "D"), "lstm_fwd (K1, D forward, B=16)", SOURCE,
                  "rsrgan_tpu/ops/pallas_lstm.py:74"),
-                (("lstm_bwd", "G"), "lstm_bwd (K2, G layer, B=16)", bwd,
-                 "rsrgan_tpu/ops/pallas_lstm.py:196"),
+                (("lstm_bwd", "G"), "lstm_bwd (K2, G layer, B=16)",
+                 RESIDENT, "rsrgan_tpu/ops/pallas_lstm.py:196"),
+                (("lstm_bwd", "D"), "lstm_bwd (K2, D layer, B=16)",
+                 RESIDENT, "rsrgan_tpu/ops/pallas_lstm.py:196"),
                 (("lstm_bwd_acc", "D"), "lstm_bwd_acc (K3, D step, 32 rows)",
                  bwd, "rsrgan_tpu/ops/pallas_lstm.py:364")):
             r = by_name[key]

@@ -1,5 +1,12 @@
 // Single-layer peephole LSTM backward for Hopper: the reverse walk over
-// the forward's saved gate activations.
+// the forward's saved gate activations, in the first, L2-streaming
+// design.
+//
+// The main path now runs this source for K3 only (acc = 1,
+// ops/lstm_seq.py `lstm_bwd_acc`, the D step's backward). K2 runs the
+// resident kernel of csrc/resident.cu, which keeps its weights in shared
+// memory; chip_smoke.py still launches acc = 0 here to time it beside
+// that one. Everything below describes this streaming design.
 //
 // Replaces two TPU kernels of rsrgan_tpu/ops/pallas_lstm.py:
 // * `_bwd_kernel` (launched by `_bwd_pallas`, K2): per step it emits the

@@ -1,4 +1,12 @@
-// Wavefront multi-layer peephole LSTM forward for Hopper.
+// Wavefront multi-layer peephole LSTM forward for Hopper: the first,
+// L2-streaming design.
+//
+// The main path now runs this source for K1 only (below: L = 1, residual
+// off, ops/lstm_seq.py `lstm_fwd`, the D forward). K4, the G stack in
+// both modes, runs the resident kernel of csrc/resident.cu, which keeps
+// its weights in shared memory; chip_smoke.py still launches this
+// source's K4 modes to time them beside it. Everything below describes
+// this streaming design.
 //
 // Replaces the TPU kernel rsrgan_tpu/ops/pallas_wavefront.py
 // `_wavefront_kernel` (launched by `lstm_wavefront_fwd`) in both of its

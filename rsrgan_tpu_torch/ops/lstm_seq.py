@@ -10,10 +10,13 @@ launches its kernel for CUDA tensors, or raises:
   L = 1 with the residual off, which computes exactly this layer.
 * ``lstm_bwd`` (K2, ``_bwd_kernel``): the reverse walk over the saved gate
   activations; emits dgates (dxw), masked m and masked dh_total. The
-  weight gradients are reduced outside (``lstm_weight_grads``).
+  weight gradients are reduced outside (``lstm_weight_grads``). Its
+  kernel is the resident one of ``csrc/resident.cu``: each block of a
+  one-block-per-SM grid holds a slice of W_h and proj in shared memory
+  for the whole walk, as ``resident_plan`` partitions them.
 * ``lstm_bwd_acc`` (K3, ``_bwd_kernel_acc``): the same walk with the
-  weight gradients reduced inside the kernel.
-Both backward kernels are ``csrc/lstm_bwd.cu``.
+  weight gradients reduced inside the kernel, ``csrc/lstm_bwd.cu``
+  (``acc=1``), which streams its weights from L2.
 
 ``lstm_layer_bwd`` picks K2 below ``ACC_BWD_MIN_BATCH`` rows and K3 from
 there, as the JAX package does; ``lstm_seq`` is the differentiable layer
@@ -29,10 +32,12 @@ bias and peepholes stay f32; dxw, m and dh streams are stored in W.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
-from rsrgan_tpu_torch.ops import _build
+from rsrgan_tpu_torch.ops import _build, resident
 from rsrgan_tpu_torch.ops import wavefront
 
 # Rows from which the backward reduces its weight gradients inside the
@@ -296,14 +301,137 @@ def _launch_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo,
     return dxw, m_out, dh_out
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The partition of K2's resident kernel (csrc/resident.cu).
+
+    Block i owns units [unit_bounds[i], unit_bounds[i+1]) (at most NU) and
+    dh columns [col_bounds[i], col_bounds[i+1]). Products (A rows padded to
+    Mp): dm = dh_total·projᵀ with K1 = P padded and NUn output rows of the
+    packed proj slice; the partial dh = dgates·W_hᵀ with K2 = 4·NU padded
+    and Np = P padded output rows. ld1 and ld2 are the row strides of the
+    packed slices and of their A operands. Phase B sums an element's
+    ``blocks`` partials with tpi threads (``resident.threads_per_sum``).
+    ``offsets`` is the shared-memory layout, ``n_res_*`` the weight rows
+    held there (the rest is read from the packed slice in global
+    memory)."""
+    B: int
+    U: int
+    P: int
+    blocks: int
+    unit_bounds: Tuple[int, ...]
+    col_bounds: Tuple[int, ...]
+    NU: int
+    NUn: int
+    K1: int
+    ld1: int
+    Np: int
+    K2: int
+    ld2: int
+    Mp: int
+    n_res_proj: int
+    n_res_wh: int
+    tpi: int
+    offsets: Dict[str, int]
+    smem: int
+
+    def weights_resident(self) -> bool:
+        return self.n_res_proj == self.NUn and self.n_res_wh == self.Np
+
+
+def resident_plan(B: int, U: int, P: int, dtype: torch.dtype,
+                  sms: int) -> BwdPlan:
+    """K2's grid on a card with ``sms`` SMs: one block per SM, at most one
+    per unit; units and dh columns split into balanced contiguous slices.
+    Raises ValueError, with the shape, where no layout fits."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
+    wb = 2 if dtype == torch.bfloat16 else 4
+    shape = f"B={B} U={U} P={P} {dtype}"
+    if min(B, U, P, sms) < 1:
+        raise ValueError(f"no resident K2 plan for {shape} on {sms} SMs")
+    blocks = min(sms, U)
+    units = resident.balanced_bounds(U, blocks)
+    NU = max(b - a for a, b in zip(units, units[1:]))
+    NUn, Np, Mp = (resident.round_up(n, m) for n, m in
+                   ((NU, 8), (P, 8), (B, 16)))
+    K1, K2 = resident.round_up(P, 16), resident.round_up(4 * NU, 16)
+    ld1, ld2 = K1 + 8, K2 + 8
+    try:
+        offsets, rows, smem = resident.layout(
+            {"a": Mp * ld1 * wb, "dm": B * NU * 4, "dg": Mp * ld2 * wb,
+             "dc": B * NU * 4, "k": (3 * NU + B) * 4},
+            [("proj", ld1 * wb, NUn), ("wh", ld2 * wb, Np)])
+    except ValueError as e:
+        raise ValueError(f"no resident K2 plan for {shape}: {e}") from None
+    cols = resident.balanced_bounds(P, blocks)
+    tpi = resident.threads_per_sum(
+        B * max(b - a for a, b in zip(cols, cols[1:])))
+    return BwdPlan(B, U, P, blocks, tuple(units), tuple(cols), NU, NUn,
+                   K1, ld1, Np, K2, ld2, Mp, rows["proj"], rows["wh"], tpi,
+                   offsets, smem)
+
+
+def pack_bwd_weights(w_h, proj, plan: BwdPlan):
+    """Each block's weight slices in the layout its products read:
+    proj_pk [blocks, NUn, ld1] (row u = proj[u0 + u, :]) and wh_pk
+    [blocks, Np, ld2] (row p, column g·NU + u = W_h[p, g·U + u0 + u]);
+    zero in every pad."""
+    U, P, NU, nb = plan.U, plan.P, plan.NU, plan.blocks
+    idx = resident.unit_index(plan.unit_bounds, NU, U, w_h.device)
+    proj_pad = torch.cat([proj, proj.new_zeros((1, P))])          # [U+1, P]
+    proj_pk = proj.new_zeros((nb, plan.NUn, plan.ld1))
+    proj_pk[:, :NU, :P] = proj_pad[idx]
+    wh4 = torch.cat([w_h.reshape(P, 4, U), w_h.new_zeros((P, 4, 1))], 2)
+    wh_g = wh4[:, :, idx].permute(2, 0, 1, 3).reshape(nb, P, 4 * NU)
+    wh_pk = w_h.new_zeros((nb, plan.Np, plan.ld2))
+    wh_pk[:, :P, :4 * NU] = wh_g
+    return proj_pk, wh_pk
+
+
+def _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi, wf,
+                         wo):
+    """One launch of K2's resident kernel on CUDA tensors."""
+    _check_bwd(acts, lengths, dout, c_hist, None, w_h, proj, wi, wf, wo)
+    T, B, G = acts.shape
+    U, P = proj.shape
+    cdt, dev = w_h.dtype, acts.device
+    with torch.cuda.device(dev):
+        plan = resident_plan(B, U, P, cdt, resident.sm_count(dev))
+        proj_pk, wh_pk = pack_bwd_weights(w_h, proj, plan)
+        bounds = torch.tensor(plan.unit_bounds + plan.col_bounds,
+                              dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        dh = torch.zeros((B, P), **f32)
+        partial = torch.empty((plan.blocks, B, P), **f32)
+        dxw = torch.empty((T, B, G), dtype=cdt, device=dev)
+        m_out = torch.empty((T, B, U), dtype=cdt, device=dev)
+        dh_out = torch.empty((T, B, P), dtype=cdt, device=dev)
+        o = plan.offsets
+        params = resident.BwdParams(
+            *(t.data_ptr() for t in (acts, lengths, dout, c_hist, wi, wf, wo,
+                                     proj_pk, wh_pk, bounds, dh, partial,
+                                     dxw, m_out, dh_out)),
+            T, B, U, P, plan.blocks, plan.NU, plan.NUn, plan.K1, plan.ld1,
+            plan.Np, plan.K2, plan.ld2, plan.Mp, plan.n_res_proj,
+            plan.n_res_wh, plan.tpi, o["a"], o["dm"], o["dg"], o["dc"],
+            o["k"], o["proj"], o["wh"], plan.smem)
+        resident.launch("lstm_bwd_resident", params, cdt == torch.bfloat16,
+                        dev, f"T={T} B={B} U={U} P={P} {cdt}")
+    return dxw, m_out, dh_out
+
+
 def lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
     """K2 (arguments and results as ``lstm_bwd_reference``). CPU tensors
-    take the twin; CUDA tensors launch csrc/lstm_bwd.cu or raise."""
+    take the twin; CUDA tensors launch the resident kernel of
+    csrc/resident.cu (``resident_plan``) or raise."""
     if acts.device.type == "cpu":
         return lstm_bwd_reference(acts, lengths, dout, c_hist, w_h, proj,
                                   wi, wf, wo)
-    out = _launch_bwd(acts, lengths, dout, c_hist, None, w_h, proj, wi, wf,
-                      wo, acc=False)
+    if acts.device.type != "cuda":
+        raise ValueError(f"no LSTM backward kernel for device {acts.device}")
+    out = _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi,
+                               wf, wo)
     lstm_bwd.launches += 1
     return out
 

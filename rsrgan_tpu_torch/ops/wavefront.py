@@ -4,9 +4,16 @@ plain PyTorch twin (counterpart of ``rsrgan_tpu/ops/pallas_wavefront.py``).
 ``lstm_wavefront_fwd`` (inference, the TPU kernel's ``save_acts=False``:
 the top layer's tap) and ``lstm_wavefront_fwd_train`` (``save_acts=True``:
 every layer's tap, c, h and gate activations for the backward) run the
-kernel in ``csrc/wavefront_fwd.cu`` for CUDA tensors and
-``lstm_wavefront_fwd_reference`` for CPU tensors; they never fall back
-from one to the other. Each counts its own launches.
+resident kernel of ``csrc/resident.cu`` for CUDA tensors (each block of a
+one-block-per-SM grid holds one layer's slice of W_h, W_x and proj in
+shared memory for the whole launch, as ``resident_plan`` partitions
+them) and ``lstm_wavefront_fwd_reference`` for CPU tensors; they never
+fall back from one to the other. Each counts its own launches. A shape
+the plan cannot hold raises, with the shape in the message.
+
+``_launch`` runs the earlier kernel, ``csrc/wavefront_fwd.cu``, which
+streams its weights from L2: ``ops/lstm_seq.py`` launches it at L = 1 as
+K1, the D forward.
 
 Differences from the TPU launcher, all TPU-only choices: no 128-lane gate
 padding (U stays 760), no rows-per-step coarsening, and the per-layer
@@ -16,10 +23,12 @@ block-shifted mask becomes a ``lengths`` vector the kernel reads itself.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Dict, Tuple
 
 import torch
 
-from rsrgan_tpu_torch.ops import _build
+from rsrgan_tpu_torch.ops import _build, resident
 
 
 def lstm_wavefront_fwd_reference(xw1, lengths, x, wx, wh, proj, bias,
@@ -162,6 +171,147 @@ def _launch(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo, residual,
     return saved if save_acts else y
 
 
+@dataclasses.dataclass(frozen=True)
+class WavefrontPlan:
+    """The partition of K4's resident kernel (csrc/resident.cu).
+
+    Block i is (layer i // nbl, unit slice i % nbl): it owns units
+    [unit_bounds[j], unit_bounds[j+1]) of its layer (at most NU, padded
+    to an even NU so that the NG = 4·NU gate columns fill 8-wide tiles)
+    and the (layer, column) pairs [pair_bounds[i], pair_bounds[i+1]) of
+    the L·P pairs (pair = layer·P + column) in phase B. Products (A rows
+    padded to Mp): the gates [h | in]·[W_h; W_x] with K = Kp = 2P padded
+    and the partial h = m·proj with K = Km = NU padded and Np = P padded
+    output rows; ldw and ldm are the row strides of the packed slices and
+    of their A operands. Phase B sums a pair's nbl partials with tpi
+    threads (``resident.threads_per_sum``). ``offsets`` is the
+    shared-memory layout, ``n_res_*`` the weight rows held there."""
+    B: int
+    L: int
+    U: int
+    P: int
+    nbl: int
+    unit_bounds: Tuple[int, ...]
+    pair_bounds: Tuple[int, ...]
+    NU: int
+    NG: int
+    Kp: int
+    ldw: int
+    Np: int
+    Km: int
+    ldm: int
+    Mp: int
+    n_res_g: int
+    n_res_p: int
+    tpi: int
+    offsets: Dict[str, int]
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.L * self.nbl
+
+    def weights_resident(self) -> bool:
+        return self.n_res_g == self.NG and self.n_res_p == self.Np
+
+
+def resident_plan(B: int, L: int, U: int, P: int, dtype: torch.dtype,
+                  sms: int) -> WavefrontPlan:
+    """K4's grid on a card with ``sms`` SMs: sms // L blocks per layer (at
+    most one per unit), units and (layer, column) pairs split into
+    balanced contiguous slices. Raises ValueError, with the shape, where no
+    layout fits."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
+    wb = 2 if dtype == torch.bfloat16 else 4
+    shape = f"B={B} L={L} U={U} P={P} {dtype}"
+    nbl = min(sms // L, U) if L >= 1 else 0
+    if min(B, U, P, nbl) < 1:
+        raise ValueError(f"no resident K4 plan for {shape} on {sms} SMs")
+    units = resident.balanced_bounds(U, nbl)
+    NU = resident.round_up(max(b - a for a, b in zip(units, units[1:])), 2)
+    Kp, Km = resident.round_up(2 * P, 16), resident.round_up(NU, 16)
+    ldw, ldm = Kp + 8, Km + 8
+    Np, Mp = resident.round_up(P, 8), resident.round_up(B, 16)
+    try:
+        offsets, rows, smem = resident.layout(
+            {"a": Mp * ldw * wb, "gate": B * 4 * NU * 4, "m": Mp * ldm * wb,
+             "c": B * NU * 4, "k": (7 * NU + B) * 4},
+            [("wp", ldm * wb, Np), ("wg", ldw * wb, 4 * NU)])
+    except ValueError as e:
+        raise ValueError(f"no resident K4 plan for {shape}: {e}") from None
+    pairs = resident.balanced_bounds(L * P, L * nbl)
+    tpi = resident.threads_per_sum(
+        B * max(b - a for a, b in zip(pairs, pairs[1:])))
+    return WavefrontPlan(B, L, U, P, nbl, tuple(units), tuple(pairs),
+                         NU, 4 * NU, Kp, ldw, Np, Km, ldm, Mp, rows["wg"],
+                         rows["wp"], tpi, offsets, smem)
+
+
+def pack_wavefront_weights(wx, wh, proj, plan: WavefrontPlan):
+    """Each block's weight slices in the layout its products read:
+    wg_pk [L, nbl, NG, ldw] (row g·NU + u of block (k, j) = [W_h[k][:, c] |
+    W_x[k-1][:, c] | 0], c = g·U + u0 + u, zero W_x part for layer 0) and
+    wp_pk [L, nbl, Np, ldm] (row p, column u = proj[k][u0 + u, p]); zero
+    in every pad."""
+    L, U, P, NU, nbl = plan.L, plan.U, plan.P, plan.NU, plan.nbl
+    idx = resident.unit_index(plan.unit_bounds, NU, U, wh.device)
+
+    def gate_cols(w):  # [L, P, G] -> [L, nbl, NG, P]
+        w4 = torch.cat([w.reshape(L, P, 4, U), w.new_zeros((L, P, 4, 1))], 3)
+        return w4[:, :, :, idx].permute(0, 3, 2, 4, 1).reshape(
+            L, nbl, 4 * NU, P)
+
+    wx_all = torch.cat([wx.new_zeros((1,) + tuple(wh.shape[1:])), wx])
+    wg_pk = wh.new_zeros((L, nbl, plan.NG, plan.ldw))
+    wg_pk[..., :P] = gate_cols(wh)
+    wg_pk[..., P:2 * P] = gate_cols(wx_all)
+    proj_pad = torch.cat([proj, proj.new_zeros((L, 1, P))], 1)  # [L, U+1, P]
+    wp_pk = wh.new_zeros((L, nbl, plan.Np, plan.ldm))
+    wp_pk[:, :, :P, :NU] = proj_pad[:, idx].transpose(2, 3)
+    return wg_pk, wp_pk
+
+
+def _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
+                     residual, save_acts):
+    """One launch of K4's resident kernel on CUDA tensors: the top tap,
+    or with ``save_acts`` the (taps, c_hist, h_hist, acts) streams."""
+    _check_inputs(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo)
+    T, B, G = xw1.shape
+    L, P, U = wh.shape[0], x.shape[2], G // 4
+    cdt, dev = wh.dtype, x.device
+    with torch.cuda.device(dev):
+        plan = resident_plan(B, L, U, P, cdt, resident.sm_count(dev))
+        wg_pk, wp_pk = pack_wavefront_weights(wx, wh, proj, plan)
+        bounds = torch.tensor(plan.unit_bounds + plan.pair_bounds,
+                              dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        h = torch.zeros((L, B, P), **f32)
+        inbuf = torch.empty((2, L, B, P), **f32)
+        partial = torch.empty((L, plan.nbl, B, P), **f32)
+        if save_acts:
+            saved = (torch.empty((L, T, B, P), **f32),
+                     torch.empty((L, T, B, U), **f32),
+                     torch.empty((L, T, B, P), **f32),
+                     torch.empty((L, T, B, G), dtype=cdt, device=dev))
+            y, out_ptrs = None, [None] + [t.data_ptr() for t in saved]
+        else:
+            y = torch.empty((T, B, P), **f32)
+            out_ptrs = [y.data_ptr()] + [None] * 4
+        o = plan.offsets
+        params = resident.FwdParams(
+            *(t.data_ptr() for t in (xw1, x, lengths, wg_pk, wp_pk, bias, wi,
+                                     wf, wo, bounds, h, inbuf, partial)),
+            *out_ptrs, T, B, L, U, P, int(bool(residual)), int(save_acts),
+            plan.nbl, plan.NU, plan.NG, plan.Kp, plan.ldw, plan.Np, plan.Km,
+            plan.ldm, plan.Mp, plan.n_res_g, plan.n_res_p, plan.tpi,
+            o["a"], o["gate"],
+            o["m"], o["c"], o["k"], o["wg"], o["wp"], plan.smem)
+        resident.launch("wavefront_resident", params, cdt == torch.bfloat16,
+                        dev, f"T={T} B={B} L={L} U={U} P={P} {cdt}")
+    return saved if save_acts else y
+
+
 def _device_check(x):
     if x.device.type != "cuda":
         raise ValueError(f"no wavefront kernel for device {x.device}")
@@ -176,8 +326,8 @@ def lstm_wavefront_fwd(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
         return lstm_wavefront_fwd_reference(xw1, lengths, x, wx, wh, proj,
                                             bias, wi, wf, wo, residual)
     _device_check(x)
-    y = _launch(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo, residual,
-                save_acts=False)
+    y = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
+                         residual, save_acts=False)
     lstm_wavefront_fwd.launches += 1
     return y
 
@@ -202,8 +352,8 @@ def lstm_wavefront_fwd_train(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
                                             bias, wi, wf, wo, residual,
                                             save_acts=True)
     _device_check(x)
-    saved = _launch(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
-                    residual, save_acts=True)
+    saved = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
+                             wo, residual, save_acts=True)
     lstm_wavefront_fwd_train.launches += 1
     return saved
 

@@ -39,9 +39,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def kernel_args(L, cdt, device, seed=0):
+def kernel_args(L, cdt, device, seed=0, rows=B):
     """Kernel arguments as lstm_stack_wavefront prepares them."""
     rng = np.random.default_rng(seed)
+    lens = (LENS * rows)[:rows]
 
     def u(*shape):
         return torch.tensor(rng.uniform(-0.5, 0.5, shape),
@@ -51,11 +52,11 @@ def kernel_args(L, cdt, device, seed=0):
                "proj_kernel": u(U, P), "w_i_diag": u(1, U),
                "w_f_diag": u(1, U), "w_o_diag": u(1, U)}
               for _ in range(L)]
-    x = torch.tensor(rng.normal(size=(T, B, P)), dtype=torch.float32)
+    x = torch.tensor(rng.normal(size=(T, rows, P)), dtype=torch.float32)
     wx, wh, bias, proj, wi, wf, wo = _prep(params, P, 1.0)
     wx, wh, proj = (a.to(cdt).contiguous() for a in (wx, wh, proj))
     xw1 = torch.matmul(x, wx[0].float()).to(cdt)
-    args = (xw1, torch.tensor(LENS, dtype=torch.int32), x,
+    args = (xw1, torch.tensor(lens, dtype=torch.int32), x,
             wx[1:].contiguous(), wh, proj, bias, wi.contiguous(),
             wf.contiguous(), wo.contiguous())
     return tuple(a.to(device) for a in args)
@@ -171,3 +172,75 @@ def test_backward_rejects_bad_arguments(cuda_device):
     out, c, h, acts = ls.lstm_fwd(*args)
     with pytest.raises(ValueError, match="dout"):
         ls.lstm_bwd(acts, args[1], out.double(), c, *args[2:4], *args[5:])
+
+
+# ---------------------------------------------------------------------------
+# the resident kernels (csrc/resident.cu): K4 both modes and K2
+# ---------------------------------------------------------------------------
+
+def assert_close(got, want, cdt):
+    for g, w in zip(got, want):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        scale = max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(g, w, atol=ATOL[cdt] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 33, 64])
+@pytest.mark.parametrize("L,residual", [(1, False), (3, False), (4, True)])
+def test_resident_wavefront_batches(cuda_device, cdt, rows, L, residual):
+    """K4 in both modes at B = 1, 33 and 64 (one, three and four 16-row
+    tiles), with a zero-length row; two launches give the same bits."""
+    from rsrgan_tpu_torch.ops.wavefront import lstm_wavefront_fwd_train
+    args = kernel_args(L, cdt, cuda_device, rows=rows)
+    for fn, save in ((lstm_wavefront_fwd, False),
+                     (lstm_wavefront_fwd_train, True)):
+        got = fn(*args, residual=residual)
+        want = lstm_wavefront_fwd_reference(*args, residual=residual,
+                                            save_acts=save)
+        got, want = ((got,), (want,)) if not save else (got, want)
+        assert_close(got, want, cdt)
+        again = fn(*args, residual=residual)
+        again = (again,) if not save else again
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_resident_wavefront_raises_for_shapes_it_cannot_hold(cuda_device):
+    """4096 rows need more staging than a block's shared memory: the
+    wrapper raises with the shape, and nothing runs in its place."""
+    args = kernel_args(1, torch.bfloat16, cuda_device, rows=4096)
+    before = lstm_wavefront_fwd.launches
+    with pytest.raises(ValueError, match="B=4096 L=1"):
+        lstm_wavefront_fwd(*args, residual=False)
+    assert lstm_wavefront_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B_,U_", [(1, 13), (33, 13), (64, 13), (16, 200)])
+def test_resident_lstm_bwd(cuda_device, cdt, B_, U_):
+    """K2 at odd batches and at U=200 (units that do not divide the
+    grid), on its forward twin's streams; two launches give the same
+    bits."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    rng = np.random.default_rng(4)
+
+    def u(*shape):
+        return torch.tensor(rng.uniform(-0.5, 0.5, shape),
+                            dtype=torch.float32, device=cuda_device)
+
+    lens = torch.tensor((LENS * B_)[:B_], dtype=torch.int32,
+                        device=cuda_device)
+    xw = torch.tensor(rng.normal(0, 0.5, (T, B_, 4 * U_)),
+                      dtype=torch.float32, device=cuda_device).to(cdt)
+    w_h, proj = u(P, 4 * U_).to(cdt), u(U_, P).to(cdt)
+    bias, wi, wf, wo = u(4 * U_), u(U_), u(U_), u(U_)
+    _, c, _, acts = ls.lstm_fwd_reference(xw, lens, w_h, proj, bias, wi, wf,
+                                          wo)
+    dout = u(T, B_, P)
+    args = (acts, lens, dout, c, w_h, proj, wi, wf, wo)
+    got = ls.lstm_bwd(*args)
+    assert_close(got, ls.lstm_bwd_reference(*args), cdt)
+    assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_bwd(*args)))
