@@ -19,11 +19,12 @@ JSON line each; any failure ends the run non-zero:
 3. kernels_train — every training kernel against its plain twin, every
    output stream, in f32 and bf16, at the shapes the train step gives
    it: K4 in train mode (save_acts=True) at G's width, B=16, T=500; K1
-   (the D forward) at 16 and 32 rows; K2 at G's width (16 rows) and D's
-   (16 rows); K3 at D's width, 32 rows; the resident kernels (K4, K2)
-   also for bit-equal relaunches and beside the streaming kernels they
-   replaced. Then all four at small odd shapes (U=13, P=9 and U=200,
-   P=40; B=1, 3, 33 and 64; a zero-length row).
+   (the D forward, the row-group kernel) at 16 and 32 rows; K2 at G's
+   width (16 rows) and D's (16 rows); K3 at D's width, 32 rows; the
+   redesigned kernels (K4, K2, K1) also for bit-equal relaunches and
+   beside the streaming kernels they replaced. Then all four at small
+   odd shapes (U=13, P=9 and U=200, P=40; B=1, 3, 33 and 64; a
+   zero-length row), K1 also without its saved streams and at G's width.
 4. grad — gradients of the full-width G stack and of D (16 and 32 rows)
    through the kernels' autograd Functions against the eager cell under
    autograd, f32.
@@ -57,7 +58,6 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "rsrgan_tpu_torch/csrc/wavefront_fwd.cu"
 RESIDENT = "rsrgan_tpu_torch/csrc/resident.cu"
 REPLACES = "rsrgan_tpu/ops/pallas_wavefront.py:48"
 
@@ -195,6 +195,12 @@ def same_bits(fn) -> bool:
 def resident_grid(plan) -> dict:
     return {"grid": plan.blocks, "design": "resident",
             "smem_bytes": plan.smem,
+            "weights_resident": plan.weights_resident()}
+
+
+def rowgroup_grid(plan) -> dict:
+    return {"grid": plan.groups, "design": "rowgroup",
+            "group_rows": plan.group_rows, "smem_bytes": plan.smem,
             "weights_resident": plan.weights_resident()}
 
 
@@ -370,12 +376,13 @@ def torch_isfinite(t) -> bool:
 
 
 def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
-          streaming=None, **extra):
+          streaming=None, steps=None, **extra):
     """Run kernel and twin on the same inputs, compare every stream, time
     both (kernel over ``reps`` launches, twin once); a redesigned kernel
     (``streaming``: the kernel it replaced, which streams its weights
     from L2, on the same inputs) is also checked for bit-equal relaunches
-    and timed beside it; emit the phase."""
+    and timed beside it; with ``steps`` (the recurrence's length) also µs
+    per step; emit the phase."""
     import torch
     got = fn()
     torch.cuda.synchronize()
@@ -388,6 +395,8 @@ def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
         extra["deterministic"] = same_bits(fn)
         extra["streaming_ms"] = cuda_time_ms(streaming, reps)
         ok = ok and extra["deterministic"]
+    if steps:
+        extra["us_per_step"] = ms * 1e3 / steps
     out = {"phase": "kernels_train", "kernel": name, "dtype": dtype_name,
            **extra, "max_abs_err": errs, "max_abs_ref": refs,
            "tol": TOL[dtype_name] if tol is None else tol,
@@ -404,14 +413,29 @@ def streaming_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
                           wf, wo, acc=False)
 
 
+def streaming_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo):
+    """The streaming K1 kernel (csrc/wavefront_fwd.cu at L = 1, residual
+    off), for timing beside the row-group one: (out, c_hist, h_hist,
+    acts)."""
+    import torch
+    from rsrgan_tpu_torch.ops import wavefront
+    T_, B_, _ = xw.shape
+    P_ = proj.shape[1]
+    args = (xw, lengths, xw.new_empty((T_, B_, P_), dtype=torch.float32),
+            w_h.new_empty((0, P_, w_h.shape[1])), w_h[None], proj[None],
+            bias[None], wi[None], wf[None], wo[None])
+    taps, c_hist, h_hist, acts = wavefront._launch(
+        *(a.contiguous() for a in args), residual=False, save_acts=True)
+    return taps[0], c_hist[0], h_hist[0], acts[0]
+
+
 def phase_kernels_train(dtype_name: str) -> list:
     """K4 train mode, K1, K2 (G and D) and K3 at the train step's shapes."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd_reference,
-                                                lstm_wavefront_fwd_train,
-                                                wavefront_grid)
+                                                lstm_wavefront_fwd_train)
     cdt = getattr(torch, dtype_name)
     bf16 = cdt == torch.bfloat16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -461,8 +485,9 @@ def phase_kernels_train(dtype_name: str) -> list:
         results.append(timed(
             "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
             lambda: ls.lstm_fwd_reference(*k1_args), streams4,
+            streaming=lambda: streaming_fwd(*k1_args), steps=TT,
             net="D", U=DU, P=DP, B=rows, T=TT,
-            grid=wavefront_grid(rows, 1, DU, DP, bf16),
+            **rowgroup_grid(ls.rowgroup_plan(rows, DU, DP, cdt, sms)),
             **k1_bound(DU, DP, rows, TT, d_lens, dtype_name)))
         out, c_h, h_h, d_acts = ls.lstm_fwd(*k1_args)
         d_dout = torch.from_numpy(
@@ -492,10 +517,12 @@ def phase_kernels_train(dtype_name: str) -> list:
 
 def phase_kernels_train_small() -> dict:
     """The training kernels at odd sizes (K4 train mode at the SMALL
-    shapes; K1, K2 and K3 at U=13, P=9 with 1, 3, 33 and 64 rows, K2 also
-    at U=200, P=40: units that do not divide the grid), f32, a zero-length
-    row, absolute 1e-5 scaled as above; the resident kernels (K4, K2) also
-    checked for bit-equal relaunches. K3 takes any row count."""
+    shapes; K1, K2 and K3 at U=13, P=9 with 1, 3, 33 and 64 rows and at
+    U=200, P=40: units that do not divide the grid; K1 also without its
+    saved streams, and at G's width, U=760, P=257, where its weights only
+    partly fit in shared memory), f32, a zero-length row, absolute 1e-5
+    scaled as above; the redesigned kernels (K4, K2, K1) also checked for
+    bit-equal relaunches. K3 takes any row count."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd_reference,
@@ -538,6 +565,10 @@ def phase_kernels_train_small() -> dict:
         tag = f"U{U_}_B{rows}"
         check(f"lstm_fwd_{tag}", ("out", "c_hist", "h_hist", "acts"), got,
               ls.lstm_fwd_reference(*k1_args))
+        deterministic(f"lstm_fwd_{tag}", lambda: ls.lstm_fwd(*k1_args))
+        check(f"lstm_fwd_no_acts_{tag}", ("out",),
+              ls.lstm_fwd(*k1_args, save_acts=False)[:1],
+              ls.lstm_fwd_reference(*k1_args, save_acts=False)[:1])
         dout = torch.from_numpy(
             rng.normal(size=(T_, rows, P_)).astype(np.float32)).cuda()
         common = (got[3], lens_t, dout, got[1])
@@ -551,6 +582,20 @@ def phase_kernels_train_small() -> dict:
                                         "dwi", "dwf", "dwo"),
               ls.lstm_bwd_acc(*common, got[2], *weights),
               ls.lstm_bwd_acc_reference(*common, got[2], *weights))
+    # K1 at G's width: the weight rows past shared memory come from L2
+    prm = layer_params(rng, P, U, P, f32, "cuda")
+    x = torch.from_numpy(rng.normal(size=(T_, B, P)).astype(np.float32))
+    k1_args = (x.cuda() @ prm["w_x"],
+               torch.tensor((lens * 6)[:B], dtype=torch.int32,
+                            device="cuda"),
+               prm["w_h"], prm["proj"], prm["bias"], prm["wi"], prm["wf"],
+               prm["wo"])
+    for save in (True, False):
+        names = ("out", "c_hist", "h_hist", "acts") if save else ("out",)
+        check(f"lstm_fwd_G_width_save_{save}", names,
+              ls.lstm_fwd(*k1_args, save_acts=save),
+              ls.lstm_fwd_reference(*k1_args, save_acts=save))
+    deterministic("lstm_fwd_G_width", lambda: ls.lstm_fwd(*k1_args))
     torch.cuda.synchronize()
     out = {"phase": "kernels_train_small", "max_abs_err": errs, "tol": tol,
            "ok": ok}
@@ -746,8 +791,8 @@ def profile_train_step(tr_list: str) -> dict:
     device_ms = sum(by_kernel.values())
     ours = {name: sum(v for k, v in by_kernel.items() if name in k)
             for name in ("wavefront_resident_kernel",
-                         "lstm_bwd_resident_kernel", "wavefront_fwd_kernel",
-                         "lstm_bwd_kernel")}
+                         "lstm_bwd_resident_kernel",
+                         "lstm_fwd_rowgroup_kernel", "lstm_bwd_kernel")}
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     return {"T": int(batch.inputs.shape[1]), "B": B,
             "true_frames": int(batch.lengths.sum()), "wall_ms": wall_ms,
@@ -921,8 +966,8 @@ PHASES = ("build", "kernel", "kernels_train", "grad", "train", "decode")
 
 
 def kernel_entry(name, source, replaces, launches, result, bound_keys):
-    extra = {k: result[k] for k in ("grid", "design", "streaming_ms")
-             if k in result}
+    extra = {k: result[k] for k in ("grid", "design", "streaming_ms",
+                                    "us_per_step") if k in result}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": (max(result["max_abs_err"].values())
@@ -951,19 +996,23 @@ def kernels_line(results: dict) -> dict:
         launches = results["train"]["launches"]
         by_name = {}
         for r in results["kernels_train"]["bfloat16"]:
-            by_name.setdefault((r["kernel"], r.get("net")), r)
+            by_name.setdefault((r["kernel"], r.get("net"), r.get("B")), r)
         for key, label, source, replaces in (
-                (("wavefront_fwd_train", None),
+                (("wavefront_fwd_train", None, B),
                  "wavefront_fwd (train, save_acts=True)", RESIDENT,
                  REPLACES),
-                (("lstm_fwd", "D"), "lstm_fwd (K1, D forward, B=16)", SOURCE,
+                (("lstm_fwd", "D", B), "lstm_fwd (K1, D forward, B=16)",
+                 RESIDENT, "rsrgan_tpu/ops/pallas_lstm.py:74"),
+                (("lstm_fwd", "D", 2 * B),
+                 "lstm_fwd (K1, D forward, 32 rows)", RESIDENT,
                  "rsrgan_tpu/ops/pallas_lstm.py:74"),
-                (("lstm_bwd", "G"), "lstm_bwd (K2, G layer, B=16)",
+                (("lstm_bwd", "G", B), "lstm_bwd (K2, G layer, B=16)",
                  RESIDENT, "rsrgan_tpu/ops/pallas_lstm.py:196"),
-                (("lstm_bwd", "D"), "lstm_bwd (K2, D layer, B=16)",
+                (("lstm_bwd", "D", B), "lstm_bwd (K2, D layer, B=16)",
                  RESIDENT, "rsrgan_tpu/ops/pallas_lstm.py:196"),
-                (("lstm_bwd_acc", "D"), "lstm_bwd_acc (K3, D step, 32 rows)",
-                 bwd, "rsrgan_tpu/ops/pallas_lstm.py:364")):
+                (("lstm_bwd_acc", "D", 2 * B),
+                 "lstm_bwd_acc (K3, D step, 32 rows)", bwd,
+                 "rsrgan_tpu/ops/pallas_lstm.py:364")):
             r = by_name[key]
             entries.append(kernel_entry(label, source, replaces,
                                         launches[key[0]], r, r))

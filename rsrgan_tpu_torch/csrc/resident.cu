@@ -1,7 +1,9 @@
-// The G-width recurrences for Hopper with their weights resident in shared
-// memory across a persistent grid of one block per SM.
+// The LSTM recurrences for Hopper with their weights resident in shared
+// memory: the G-width ones across a persistent grid of one block per SM,
+// the single-layer forward (K1) in one block per group of 16 rows.
 //
-// Two kernels, one design:
+// Two kernels, one design (the third, K1, is described at its section
+// below):
 // * lstm_bwd_resident_kernel replaces rsrgan_tpu/ops/pallas_lstm.py
 //   `_bwd_kernel` (launched by `_bwd_pallas`, K2): the reverse walk over the
 //   forward's saved gate activations; per step it emits dgates (dxw), the
@@ -111,6 +113,10 @@ __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -152,7 +158,7 @@ __device__ __forceinline__ float sigmoid(float v) {
 __device__ void copy_to_shared(void* dst, const void* src, size_t bytes) {
   uint4* d = static_cast<uint4*>(dst);
   const uint4* s = static_cast<const uint4*>(src);
-  for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads)
+  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x)
     d[i] = __ldg(s + i);
 }
 
@@ -749,6 +755,473 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1: the single-layer forward, one block per group of at most 16 rows.
+//
+// Replaces rsrgan_tpu/ops/pallas_lstm.py `_fwd_kernel` (launched by
+// `_fwd_pallas`): one layer over T from a precomputed input projection xw,
+// with peepholes, the projection h = m·proj and masking; with `save` also
+// c_hist, h_hist (post-mask state) and the gate activations [si, tj, sf,
+// so] in W at every step.
+//
+// What bounds it on the card: T dependent steps of two small products (D:
+// 16 rows × 40 × 1024 for the gates, 16 × 256 × 40 for the projection:
+// 1.6 MFLOP a step) and the cell math between them; the bytes (xw in, the
+// streams out) are ~0.01-0.02 ms at 3.35 TB/s. The first port of K1 (the
+// streaming wavefront of csrc/wavefront_fwd.cu at L = 1) split a step over
+// the grid in 16 and 4 work items between two grid barriers and re-read
+// W_h and proj from L2 with scalar loads: ~10 µs a step. A step here is a
+// chain of shared-memory, mma and MUFU latencies between three block
+// barriers (~3.6-3.9 µs at D width, bf16; PERF.md).
+//
+// What this design does about it:
+// * rows are independent in the forward, so a block owns a group of rows
+//   and walks all T steps alone: a plain launch, block barriers only, no
+//   grid barrier. The Python plan (`rowgroup_plan` in ops/lstm_seq.py)
+//   fixes the groups, sizes and offsets: as few rows a block as the card's
+//   SMs allow (one at the D step's 16 and 32 rows), because each SM then
+//   runs fewer cells and moves fewer stream bytes a step, while the
+//   products, which the tensor cores finish in a few cycles at any row
+//   count up to 16, are not repeated more than the blocks;
+// * the block copies the packed W_h and proj into shared memory once (the
+//   whole D layer in bf16: ~136 KB). Rows that do not fit (f32 at D width,
+//   any dtype at G width) are read from the same packed slice in global
+//   memory, as the kernels above do;
+// * step t's xw rows arrive in shared memory by cp.async, issued during
+//   step t - 1; the cell phase reads them there and writes the gate
+//   activations in their place, which leave (with c_hist, from the cell
+//   state in shared memory) as coalesced 16-byte stores: no thread touches
+//   the streams at the mma fragments' scattered positions;
+// * the gate product: warp w owns the unit groups q = w, w + 16, ... of 8
+//   units; W_h is packed so that the four gate tiles (i, j, f, o) of a
+//   group are 32 consecutive rows, so a thread's accumulators hold the four
+//   pre-activations of the same (row, unit) and the cell update runs in
+//   registers with no barrier. With one row a block, a warp takes two
+//   groups at once and shuffles the live values so that 16 lanes run one
+//   cell each (in f32, lanes dot their own unit's rows, K split over two
+//   lanes); the nonlinearities use ex2.approx / rcp.approx (a few ulp);
+// * the projection: m (rounded to W) goes to a shared A operand; after one
+//   barrier the warps split the (8-column tile, K chunk) tasks (D: 5
+//   tiles x 3 chunks of 6 k-steps, two accumulator chains each), write
+//   f32 partials for the group's rows to shared memory, and after another
+//   the epilogue sums each output's ks partials in chunk order (a fixed
+//   order: relaunches give the same bits), masks, carries and stores, and
+//   writes round_W(h) into the next step's A operand; a third barrier
+//   ends the step;
+// * bf16 products on mma.sync.m16n8k16 fed by ldmatrix, f32 on CUDA cores
+//   (fmaf) at the same fragment positions, so the cell code is shared.
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 512;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRows = 16;  // rows of the mma tile (M): a group's most
+
+struct RowParams {
+  const void* xw;       // [T, B, G] W
+  const int* lengths;   // [B]
+  const void* wh_pk;    // [ngrp * 32][ldh] W: row 32q + 8g + i =
+                        //   W_h[:, g*U + 8q + i] (zero past U)
+  const void* wp_pk;    // [Np][ldm] W: row p = proj[:, p]
+  const float* bias;    // [G], forget_bias folded in
+  const float* wi;      // [U] peepholes
+  const float* wf;
+  const float* wo;
+  const int* rows;      // row_bounds[groups + 1]
+  float* out;           // [T, B, P]
+  float* c_hist;        // [T, B, U] (save only)
+  float* h_hist;        // [T, B, P] (save only)
+  void* acts;           // [T, B, G] W (save only)
+  int T, B, U, P, save, groups, grows, ngrp, Kh, ldh, Np, Km, ldm, ks;
+  int kchunk, ldx, xchunk, n_res_h, n_res_p;
+  int off_x, off_h, off_m, off_c, off_hf, off_part, off_k, off_wh, off_wp;
+  int smem;
+};
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  // the clobber keeps the compiler from moving this thread's earlier
+  // reads of dst past the copy
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+// The cell's nonlinearities for K1 from ex2.approx and rcp.approx (f32,
+// a few ulp): the accurate expf, division and tanhf cost ~3x the
+// instructions, and here every cell of the block runs on one SM.
+__device__ __forceinline__ float sigmoid_fast(float v) {
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+__device__ __forceinline__ float tanh_fast(float v) {
+  return 2.0f * sigmoid_fast(2.0f * v) - 1.0f;
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The group's rows of the xw / acts stream at step t, in xchunk-byte
+// chunks (16, or 8 where a row is not a multiple of 16 bytes), against
+// s_x [16][ldx]: with `out`, copies the acts that the cell phase wrote
+// into s_x to step t - 1 of the acts stream; with `in` (t < T), loads
+// step t's xw into s_x with cp.async. A thread handles the same chunks in
+// both, so its load of a chunk is consumed before its cp.async overwrites
+// it.
+template <typename W>
+__device__ __forceinline__ void swap_x(const RowParams& p, W* s_x, int t,
+                                       int row0, int nrows, bool out,
+                                       bool in) {
+  const size_t row_bytes = (size_t)4 * p.U * sizeof(W);
+  const int per_row = (int)(row_bytes / p.xchunk);
+  const char* src = static_cast<const char*>(p.xw) +
+                    ((size_t)t * p.B + row0) * row_bytes;
+  char* dst = static_cast<char*>(p.acts) +
+              ((size_t)(t - 1) * p.B + row0) * row_bytes;
+  for (int i = threadIdx.x; i < nrows * per_row; i += kRowThreads) {
+    const int r = i / per_row;
+    const size_t c = (size_t)(i - r * per_row) * p.xchunk;
+    char* sx = reinterpret_cast<char*>(s_x + (size_t)r * p.ldx) + c;
+    const size_t g = r * row_bytes + c;
+    if (out) {
+      if (p.xchunk == 16)
+        *reinterpret_cast<uint4*>(dst + g) = *reinterpret_cast<uint4*>(sx);
+      else
+        *reinterpret_cast<uint2*>(dst + g) = *reinterpret_cast<uint2*>(sx);
+    }
+    if (in) cp_async(sx, src + g, p.xchunk);
+  }
+}
+
+// The four gate tiles of one unit group (w: its 32 packed rows) against
+// the 16 rows of A over K: acc[g][r] at the mma C positions (r = 0, 1: row
+// lane/4, columns 2*(lane%4) and +1; r = 2, 3: the same at row lane/4 + 8).
+__device__ __forceinline__ void gate_tiles(const __nv_bfloat16* A,
+                                           const __nv_bfloat16* w,
+                                           bool shared, int ld, int K,
+                                           float (*acc)[4]) {
+  const int lane = threadIdx.x % 32;
+  const uint32_t a_at =
+      smem_addr(A + (size_t)(lane % 16) * ld + (lane / 16) * 8);
+  if (shared) {
+    const uint32_t w_at =
+        smem_addr(w + (size_t)(lane % 8) * ld + ((lane / 8) % 2) * 8);
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_at + k0 * 2);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        uint32_t b[2];
+        ldmatrix_x2(b, w_at + (uint32_t)(g * 8 * ld + k0) * 2);
+        mma_bf16(acc[g], a, b[0], b[1]);
+      }
+    }
+  } else {
+    const __nv_bfloat16* wrow = w + (size_t)(lane / 4) * ld + 2 * (lane % 4);
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a_at + k0 * 2);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const __nv_bfloat16* r = wrow + (size_t)g * 8 * ld + k0;
+        mma_bf16(acc[g], a, ld32(r, true), ld32(r + 8, true));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void gate_tiles(const float* A, const float* w,
+                                           bool shared, int ld, int K,
+                                           float (*acc)[4]) {
+  const int lane = threadIdx.x % 32;
+  const float* a0 = A + (size_t)(lane / 4) * ld;
+  const float* a1 = a0 + (size_t)8 * ld;
+  const float* wr = w + (size_t)2 * (lane % 4) * ld;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float x0 = a0[k], x1 = a1[k];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float* r = wr + (size_t)g * 8 * ld + k;
+      const float w0 = shared ? r[0] : __ldg(r);
+      const float w1 = shared ? r[ld] : __ldg(r + ld);
+      acc[g][0] = fmaf(x0, w0, acc[g][0]);
+      acc[g][1] = fmaf(x0, w1, acc[g][1]);
+      acc[g][2] = fmaf(x1, w0, acc[g][2]);
+      acc[g][3] = fmaf(x1, w1, acc[g][3]);
+    }
+  }
+}
+
+// One 16x8 tile of the projection (w: the tile's 8 packed rows) over K in
+// [k0, k1), into c at the mma C positions.
+__device__ __forceinline__ void proj_tile(const __nv_bfloat16* A,
+                                          const __nv_bfloat16* w, bool shared,
+                                          int ld, int k0, int k1, int,
+                                          float* c) {
+  const int lane = threadIdx.x % 32;
+  const uint32_t a_at =
+      smem_addr(A + (size_t)(lane % 16) * ld + (lane / 16) * 8);
+  const uint32_t w_at =
+      smem_addr(w + (size_t)(lane % 8) * ld + ((lane / 8) % 2) * 8);
+  const __nv_bfloat16* wrow = w + (size_t)(lane / 4) * ld + 2 * (lane % 4);
+  auto step = [&](float* acc, int k) {
+    uint32_t a[4], b[2];
+    ldmatrix_x4(a, a_at + k * 2);
+    if (shared) {
+      ldmatrix_x2(b, w_at + k * 2);
+    } else {
+      b[0] = ld32(wrow + k, true);
+      b[1] = ld32(wrow + k + 8, true);
+    }
+    mma_bf16(acc, a, b[0], b[1]);
+  };
+  float d[4] = {};  // a second chain for the odd k-steps, added last
+  int k = k0;
+  for (; k + 32 <= k1; k += 32) {
+    step(c, k);
+    step(d, k + 16);
+  }
+  if (k < k1) step(c, k);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) c[r] += d[r];
+}
+
+__device__ __forceinline__ void proj_tile(const float* A, const float* w,
+                                          bool shared, int ld, int k0, int k1,
+                                          int K, float* c) {
+  const int lane = threadIdx.x % 32;
+  const float* a0 = A + (size_t)(lane / 4) * ld;
+  const float* a1 = a0 + (size_t)8 * ld;
+  const float* r = w + (size_t)2 * (lane % 4) * ld;
+#pragma unroll 4
+  for (int k = k0; k < min(k1, K); ++k) {
+    const float x0 = a0[k], x1 = a1[k];
+    const float w0 = shared ? r[k] : __ldg(r + k);
+    const float w1 = shared ? r[ld + k] : __ldg(r + ld + k);
+    c[0] = fmaf(x0, w0, c[0]);
+    c[1] = fmaf(x0, w1, c[1]);
+    c[2] = fmaf(x1, w0, c[2]);
+    c[3] = fmaf(x1, w1, c[3]);
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    lstm_fwd_rowgroup_kernel(const RowParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kBf16 = sizeof(W) == 2;
+  const int U = p.U, P = p.P, G = 4 * U;
+  const int row0 = p.rows[blockIdx.x];
+  const int nrows = p.rows[blockIdx.x + 1] - row0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  W* s_x = reinterpret_cast<W*>(smem + p.off_x);          // [rows][ldx]
+  W* s_h = reinterpret_cast<W*>(smem + p.off_h);          // [16][ldh]
+  W* s_m = reinterpret_cast<W*>(smem + p.off_m);          // [16][ldm]
+  float* s_c = reinterpret_cast<float*>(smem + p.off_c);  // [rows][U]
+  float* s_hf = reinterpret_cast<float*>(smem + p.off_hf);  // [rows][P]
+  float* s_part =
+      reinterpret_cast<float*>(smem + p.off_part);  // [ks][grows][Np]
+  // bias [4][U], peepholes [3][U] (i, f, o), then the rows' lengths [16]
+  float* s_k = reinterpret_cast<float*>(smem + p.off_k);
+  int* s_len = reinterpret_cast<int*>(s_k + 7 * U);
+  W* s_wh = reinterpret_cast<W*>(smem + p.off_wh);
+  W* s_wp = reinterpret_cast<W*>(smem + p.off_wp);
+  const W* g_wh = static_cast<const W*>(p.wh_pk);
+  const W* g_wp = static_cast<const W*>(p.wp_pk);
+  const float inv_p = 1.0f / P, inv_u = 1.0f / U;
+
+  swap_x(p, s_x, 0, row0, nrows, false, true);
+  copy_to_shared(s_wh, g_wh, (size_t)p.n_res_h * p.ldh * sizeof(W));
+  copy_to_shared(s_wp, g_wp, (size_t)p.n_res_p * p.ldm * sizeof(W));
+  // the A operands' pads (rows past nrows, K past P or U) stay zero
+  for (int i = threadIdx.x; i < kRows * p.ldh; i += kRowThreads)
+    s_h[i] = to_w<W>(0.0f);
+  for (int i = threadIdx.x; i < kRows * p.ldm; i += kRowThreads)
+    s_m[i] = to_w<W>(0.0f);
+  // the plan sizes s_c and s_hf (and s_x) for the group's rows only
+  for (int i = threadIdx.x; i < nrows * U; i += kRowThreads) s_c[i] = 0.0f;
+  for (int i = threadIdx.x; i < nrows * P; i += kRowThreads) s_hf[i] = 0.0f;
+  for (int i = threadIdx.x; i < U; i += kRowThreads) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) s_k[g * U + i] = p.bias[g * U + i];
+    s_k[4 * U + i] = p.wi[i];
+    s_k[5 * U + i] = p.wf[i];
+    s_k[6 * U + i] = p.wo[i];
+  }
+  for (int i = threadIdx.x; i < nrows; i += kRowThreads)
+    s_len[i] = p.lengths[row0 + i];
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int own = warp < p.ngrp ? (p.ngrp - 1 - warp) / kRowWarps + 1 : 0;
+  const int K_gate = kBf16 ? p.Kh : P;
+  const int n_tiles = p.Np / 8;
+  const size_t step_bytes = (size_t)nrows * G * sizeof(W);
+
+  SECTIONS_START;
+  for (int t = 0; t < p.T; ++t) {
+    if (t + 2 < p.T) {  // step t + 2's xw rows into L2
+      const char* base = static_cast<const char*>(p.xw) +
+                         ((size_t)(t + 2) * p.B + row0) * G * sizeof(W);
+      for (size_t i = threadIdx.x; i * 128 < step_bytes; i += kRowThreads)
+        prefetch_l2(base + i * 128);
+    }
+    // the peephole cell of (row, unit u) from its four gate products;
+    // reads xw from s_x and leaves the activations in its place
+    auto cell = [&](int row, int u, const float* pre) {
+      W* x = s_x + (size_t)row * p.ldx + u;  // xw in, acts out
+      float gate[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        gate[g] = (to_f(x[g * U]) + pre[g]) + s_k[g * U + u];
+      const float c_prev = s_c[row * U + u];
+      const float si = sigmoid_fast(gate[0] + s_k[4 * U + u] * c_prev);
+      const float tj = tanh_fast(gate[1]);
+      const float sf = sigmoid_fast(gate[2] + s_k[5 * U + u] * c_prev);
+      const float c_new = sf * c_prev + si * tj;
+      const float so = sigmoid_fast(gate[3] + s_k[6 * U + u] * c_new);
+      const float c_kept = t < s_len[row] ? c_new : c_prev;
+      s_c[row * U + u] = c_kept;
+      s_m[row * p.ldm + u] = to_w<W>(so * tanh_fast(c_new));
+      if (p.save) {
+        x[0] = to_w<W>(si);
+        x[U] = to_w<W>(tj);
+        x[2 * U] = to_w<W>(sf);
+        x[3 * U] = to_w<W>(so);
+      }
+    };
+    auto gates_of = [&](int q, float (*acc)[4]) {
+      const bool res = (q + 1) * 32 <= p.n_res_h;
+      gate_tiles((const W*)s_h,
+                 (res ? s_wh : g_wh) + (size_t)q * 32 * p.ldh, res, p.ldh,
+                 K_gate, acc);
+    };
+    if (nrows == 1) {
+      // One row (the main path's groups): only lanes 0-3 hold live
+      // products, so the warp takes its groups in pairs and moves each
+      // live value to its own lane (lane l: unit l % 8 of the pair's
+      // group l / 8), so that 16 lanes run one cell each.
+      for (int j = 0; j < own; j += 2) {
+        const int qa = warp + j * kRowWarps;
+        const bool two = j + 1 < own;
+        const int half = (lane / 8) % 2;
+        const int q = qa + half * kRowWarps, u = 8 * q + lane % 8;
+        float pre[4];
+        if constexpr (kBf16) {
+          float acc[2][4][4] = {};
+          gates_of(qa, acc[0]);
+          if (two) gates_of(qa + kRowWarps, acc[1]);
+          const int src = (lane % 8) / 2;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float a0 = __shfl_sync(0xffffffffu, acc[0][g][0], src);
+            const float a1 = __shfl_sync(0xffffffffu, acc[0][g][1], src);
+            const float b0 = __shfl_sync(0xffffffffu, acc[1][g][0], src);
+            const float b1 = __shfl_sync(0xffffffffu, acc[1][g][1], src);
+            pre[g] = lane % 2 ? (half ? b1 : a1) : (half ? b0 : a0);
+          }
+        } else {
+          // f32 on CUDA cores: lane l dots h with its unit's four packed
+          // gate rows over half of K (lanes l and l + 16 split it), and
+          // one shuffle adds the halves (the same sum on both lanes)
+          const bool res = (q + 1) * 32 <= p.n_res_h;
+          const W* w =
+              (res ? s_wh : g_wh) + ((size_t)q * 32 + lane % 8) * p.ldh;
+          const int k0 = lane < 16 ? 0 : P / 2, k1 = lane < 16 ? P / 2 : P;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) pre[g] = 0.0f;
+          if (half < (two ? 2 : 1)) {
+#pragma unroll 4
+            for (int k = k0; k < k1; ++k) {
+              const float hk = s_h[k];
+#pragma unroll
+              for (int g = 0; g < 4; ++g) {
+                const W* r = w + (size_t)g * 8 * p.ldh + k;
+                pre[g] = fmaf(hk, res ? *r : __ldg(r), pre[g]);
+              }
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            pre[g] += __shfl_xor_sync(0xffffffffu, pre[g], 16);
+        }
+        if (lane < 16 && half < (two ? 2 : 1) && u < U) cell(0, u, pre);
+      }
+    } else {
+      // the fragment's own positions: rows lane/4 (+8), units 2*(lane%4)
+      // (+1) of each group
+      for (int j = 0; j < own; ++j) {
+        const int q = warp + j * kRowWarps;
+        float acc[4][4] = {};
+        gates_of(q, acc);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = lane / 4 + (r / 2) * 8;
+          const int u = 8 * q + 2 * (lane % 4) + r % 2;
+          if (row >= nrows || u >= U) continue;
+          const float pre[4] = {acc[0][r], acc[1][r], acc[2][r], acc[3][r]};
+          cell(row, u, pre);
+        }
+      }
+    }
+    __syncthreads();
+    SECTION_END(0);
+    // the saved streams out of shared memory, coalesced, and the next
+    // step's xw in; then the projection's (tile, K chunk) partials
+    swap_x(p, s_x, t + 1, row0, nrows, p.save, t + 1 < p.T);
+    if (p.save)
+      for (int e = threadIdx.x; e < nrows * U; e += kRowThreads) {
+        const int b = row_of(e, U, inv_u);
+        p.c_hist[((size_t)t * p.B + row0 + b) * U + e - b * U] = s_c[e];
+      }
+    for (int task = warp; task < n_tiles * p.ks; task += kRowWarps) {
+      const int tile = task % n_tiles, ck = task / n_tiles;
+      const bool res = (tile + 1) * 8 <= p.n_res_p;
+      const int k0 = ck * p.kchunk * 16;
+      float c[4] = {};
+      proj_tile((const W*)s_m,
+                (res ? s_wp : g_wp) + (size_t)tile * 8 * p.ldm, res, p.ldm,
+                k0, min(k0 + p.kchunk * 16, p.Km), U, c);
+      float* part = s_part + (size_t)ck * p.grows * p.Np + tile * 8 +
+                    2 * (lane % 4);
+      const int row = lane / 4;
+      if (row < nrows) {
+        part[row * p.Np] = c[0];
+        part[row * p.Np + 1] = c[1];
+      }
+      if (row + 8 < nrows) {
+        part[(row + 8) * p.Np] = c[2];
+        part[(row + 8) * p.Np + 1] = c[3];
+      }
+    }
+    __syncthreads();
+    SECTION_END(1);
+    // the epilogue: sum the chunks in order, mask, carry, store
+    for (int e = threadIdx.x; e < nrows * P; e += kRowThreads) {
+      const int b = row_of(e, P, inv_p), col = e - b * P;
+      float v = 0.0f;
+      for (int ck = 0; ck < p.ks; ++ck)
+        v += s_part[((size_t)ck * p.grows + b) * p.Np + col];
+      const bool live = t < s_len[b];
+      const float h = live ? v : s_hf[b * P + col];
+      s_hf[b * P + col] = h;
+      s_h[b * p.ldh + col] = to_w<W>(h);
+      const size_t o = ((size_t)t * p.B + row0 + b) * P + col;
+      p.out[o] = live ? v : 0.0f;
+      if (p.save) p.h_hist[o] = h;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    SECTION_END(2);
+  }
+}
+
 // A cooperative launch of `blocks` blocks of kThreads with `smem` bytes of
 // dynamic shared memory; refused (cudaErrorCooperativeLaunchTooLarge) when
 // the blocks cannot all be resident at once.
@@ -779,7 +1252,8 @@ extern "C" {
 
 // Each launches its kernel on `stream` and returns cudaGetLastError() (0 on
 // success). They do not synchronise and allocate nothing; the caller's
-// plan fills every size and offset of the parameter block.
+// plan fills every size and offset of the parameter block. The first two
+// are cooperative launches; lstm_fwd_rowgroup (below) is a plain one.
 int lstm_bwd_resident(const void* params, int use_bf16, int device,
                       void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
@@ -810,9 +1284,37 @@ int wavefront_resident(const void* params, int use_bf16, int device,
                                  static_cast<cudaStream_t>(stream));
 }
 
+// K1: a plain launch of one block per row group (no grid barrier, so no
+// cooperative launch).
+int lstm_fwd_rowgroup(const void* params, int use_bf16, int device,
+                      void* stream) {
+  cudaGetLastError();
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const RowParams q = *static_cast<const RowParams*>(params);
+  const void* kernel =
+      use_bf16
+          ? reinterpret_cast<const void*>(
+                lstm_fwd_rowgroup_kernel<__nv_bfloat16>)
+          : reinterpret_cast<const void*>(lstm_fwd_rowgroup_kernel<float>);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    lstm_fwd_rowgroup_kernel<__nv_bfloat16>
+        <<<q.groups, kRowThreads, q.smem, s>>>(q);
+  else
+    lstm_fwd_rowgroup_kernel<float><<<q.groups, kRowThreads, q.smem, s>>>(q);
+  return (int)cudaGetLastError();
+}
+
 // sizeof of the parameter blocks, for the wrappers' layout check.
 int resident_params_sizes(int which) {
-  return which == 0 ? (int)sizeof(BwdParams) : (int)sizeof(FwdParams);
+  return which == 0   ? (int)sizeof(BwdParams)
+         : which == 1 ? (int)sizeof(FwdParams)
+                      : (int)sizeof(RowParams);
 }
 
 #ifdef RESIDENT_PROFILE

@@ -1,12 +1,13 @@
 // Wavefront multi-layer peephole LSTM forward for Hopper: the first,
 // L2-streaming design.
 //
-// The main path now runs this source for K1 only (below: L = 1, residual
-// off, ops/lstm_seq.py `lstm_fwd`, the D forward). K4, the G stack in
-// both modes, runs the resident kernel of csrc/resident.cu, which keeps
-// its weights in shared memory; chip_smoke.py still launches this
-// source's K4 modes to time them beside it. Everything below describes
-// this streaming design.
+// No path of the port runs this source any more. K4, the G stack in both
+// modes, runs the resident kernel of csrc/resident.cu, and K1, the D
+// forward (below: L = 1, residual off), runs that file's row-group
+// kernel; both keep their weights in shared memory. chip_smoke.py still
+// launches this source (ops/wavefront.py `_launch`) in all three wirings
+// to time it beside the kernels that replaced it. Everything below
+// describes this streaming design.
 //
 // Replaces the TPU kernel rsrgan_tpu/ops/pallas_wavefront.py
 // `_wavefront_kernel` (launched by `lstm_wavefront_fwd`) in both of its
@@ -22,7 +23,7 @@
 // At L = 1 with the residual off the same program is the single-layer
 // forward rsrgan_tpu/ops/pallas_lstm.py `_fwd_kernel` (K1): xw1 is that
 // kernel's precomputed input projection, which in bf16 is already a bf16
-// product, so passing it in W is exact. ops/lstm_seq.py launches it so.
+// product, so passing it in W is exact.
 //
 // What bounds it on the card: the T+L-1 dependent wavefront steps. One
 // step is ~0.2 GFLOP at the res_lstm_l widths (L=4, U=760, P=257, B=16)
@@ -411,17 +412,6 @@ int wavefront_fwd(const void* xw1, const float* x, const int* lengths,
                  acts, T,  B,       L,   U,    P,    residual, save};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(use_bf16 ? launch<__nv_bfloat16>(p, s) : launch<float>(p, s));
-}
-
-// The grid a launch at these sizes would use (negative: CUDA error code).
-int wavefront_fwd_grid(int B, int L, int U, int P, int use_bf16,
-                       int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return -(int)err;
-  const size_t smem = smem_bytes(U, P);
-  const int grid = use_bf16 ? plan_grid<__nv_bfloat16>(B, L, U, P, smem, &err)
-                            : plan_grid<float>(B, L, U, P, smem, &err);
-  return grid < 0 ? -(int)err : grid;
 }
 
 const char* wavefront_error_string(int err) {

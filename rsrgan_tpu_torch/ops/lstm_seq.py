@@ -6,8 +6,10 @@ PyTorch twin in this module; a wrapper runs its twin for CPU tensors and
 launches its kernel for CUDA tensors, or raises:
 
 * ``lstm_fwd`` (K1, ``_fwd_kernel``): one layer over T from a precomputed
-  input projection. Its kernel is ``csrc/wavefront_fwd.cu`` launched at
-  L = 1 with the residual off, which computes exactly this layer.
+  input projection. Its kernel is the row-group one of
+  ``csrc/resident.cu``: one block per group of at most 16 rows holds the
+  whole layer's W_h and proj in shared memory and walks all T steps with
+  block barriers only, as ``rowgroup_plan`` lays it out.
 * ``lstm_bwd`` (K2, ``_bwd_kernel``): the reverse walk over the saved gate
   activations; emits dgates (dxw), masked m and masked dh_total. The
   weight gradients are reduced outside (``lstm_weight_grads``). Its
@@ -38,7 +40,6 @@ from typing import Dict, Tuple
 import torch
 
 from rsrgan_tpu_torch.ops import _build, resident
-from rsrgan_tpu_torch.ops import wavefront
 
 # Rows from which the backward reduces its weight gradients inside the
 # kernel (K3) rather than in products outside (K2), as
@@ -99,27 +100,202 @@ def lstm_fwd_reference(xw, lengths, w_h, proj, bias, wi, wf, wo,
             torch.stack(acts) if save_acts else None)
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The layout of K1's row-group kernel (csrc/resident.cu).
+
+    Block i walks rows [row_bounds[i], row_bounds[i+1]), at most
+    ``group_rows``: the fewest rows (a power of two up to ``ROW_TILE``, one
+    mma tile of M) that keep the blocks within the card's SMs, so that
+    each SM runs as few cells and moves as few stream bytes a step as it
+    can (1 row a block at the D step's 16 and 32 rows); fewer still where
+    the staging would not fit. Unit group q (units 8q .. 8q+7, ``ngrp``
+    groups) is owned by warp ``owner(q)`` of ``ROW_WARPS``; its four gate
+    tiles are the 32 packed W_h rows 32q .. 32q+31. Products (A rows
+    padded to 16): the gates h·W_h with K = Kh = P padded, and h = m·proj
+    with K = Km = U padded over Np = P padded output rows in 8-row tiles,
+    K split into ``ks`` chunks of ``kchunk`` 16-wide steps, one (tile,
+    chunk) task a warp, whose partials [ks, group_rows, Np] are summed in
+    chunk order. ldh and ldm are the row strides of the packed weights and
+    of their A operands. Step t's xw rows are staged in shared memory
+    [group_rows, ldx] in ``xchunk``-byte copies (the cell phase reads them
+    there and writes the gate activations in their place, which leave in
+    the same chunks). ``offsets`` is the shared-memory layout, ``n_res_*``
+    the weight rows held there (the rest is read from the packed weights
+    in global memory)."""
+    B: int
+    U: int
+    P: int
+    group_rows: int
+    groups: int
+    row_bounds: Tuple[int, ...]
+    ngrp: int
+    Kh: int
+    ldh: int
+    Np: int
+    Km: int
+    ldm: int
+    ks: int
+    kchunk: int
+    ldx: int
+    xchunk: int
+    n_res_h: int
+    n_res_p: int
+    offsets: Dict[str, int]
+    smem: int
+
+    @staticmethod
+    def owner(q: int) -> int:
+        """The warp that computes unit group q's gates and cell."""
+        return q % ROW_WARPS
+
+    def weights_resident(self) -> bool:
+        return self.n_res_h == 32 * self.ngrp and self.n_res_p == self.Np
+
+
+ROW_TILE = 16   # most rows a block: one mma tile of M (kRows)
+ROW_WARPS = 16  # warps per block (kRowWarps)
+
+
+def rowgroup_plan(B: int, U: int, P: int, dtype: torch.dtype,
+                  sms: int) -> FwdPlan:
+    """K1's launch on a card with ``sms`` SMs: ceil(B / group_rows)
+    blocks over balanced row groups. Raises ValueError, with the shape,
+    where no layout fits."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    wb, pad = (2, 8) if bf16 else (4, 4)
+    shape = f"B={B} U={U} P={P} {dtype}"
+    if min(B, U, P, sms) < 1:
+        raise ValueError(f"no row-group K1 plan for {shape} on {sms} SMs")
+    ngrp = -(-U // 8)
+    Kh, Km, Np = (resident.round_up(n, m) for n, m in
+                  ((P, 16), (U, 16), (P, 8)))
+    ldh, ldm = Kh + pad, Km + pad
+    # 16 bytes more than a row, so the 8 rows a warp reads at once sit in
+    # different banks
+    ldx = 4 * U + 16 // wb
+    xchunk = 16 if 4 * U * wb % 16 == 0 else 8
+    ksteps = Km // 16
+    fewest = 1
+    while fewest < ROW_TILE and -(-B // fewest) > sms:
+        fewest *= 2
+    # the projection's K in ks chunks of kchunk k-steps, so that the
+    # (8-column tile, chunk) tasks give every warp one
+    ks = max(1, min(ROW_WARPS // (Np // 8), ksteps))
+    kchunk = -(-ksteps // ks)
+    ks = -(-ksteps // kchunk)
+    for group_rows in (r for r in (16, 8, 4, 2, 1) if r <= fewest):
+        try:
+            offsets, rows, smem = resident.layout(
+                {"x": group_rows * ldx * wb,
+                 "h": ROW_TILE * ldh * wb, "m": ROW_TILE * ldm * wb,
+                 "c": group_rows * U * 4, "hf": group_rows * P * 4,
+                 "part": ks * group_rows * Np * 4,
+                 "k": (7 * U + ROW_TILE) * 4},
+                [("wp", ldm * wb, Np), ("wh", ldh * wb, 32 * ngrp)],
+                multiple={"wp": 8, "wh": 32})
+            break
+        except ValueError as e:
+            error = e
+    else:
+        raise ValueError(f"no row-group K1 plan for {shape}: {error}")
+    groups = -(-B // group_rows)
+    return FwdPlan(B, U, P, group_rows, groups,
+                   tuple(resident.balanced_bounds(B, groups)), ngrp, Kh, ldh,
+                   Np, Km, ldm, ks, kchunk, ldx, xchunk, rows["wh"],
+                   rows["wp"], offsets, smem)
+
+
+def pack_fwd_weights(w_h, proj, plan: FwdPlan):
+    """K1's weights in the layout its products read: wh_pk [ngrp·32, ldh]
+    (row 32q + 8g + i = W_h[:, g·U + 8q + i]) and wp_pk [Np, ldm] (row p =
+    proj[:, p]); zero in every pad."""
+    U, P, ngrp = plan.U, plan.P, plan.ngrp
+    wh4 = torch.cat([w_h.reshape(P, 4, U),
+                     w_h.new_zeros((P, 4, 8 * ngrp - U))], 2)
+    wh_pk = w_h.new_zeros((32 * ngrp, plan.ldh))
+    wh_pk[:, :P] = wh4.reshape(P, 4, ngrp, 8).permute(2, 1, 3, 0).reshape(
+        32 * ngrp, P)
+    wp_pk = proj.new_zeros((plan.Np, plan.ldm))
+    wp_pk[:P, :U] = proj.t()
+    return wh_pk, wp_pk
+
+
+def _check_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo):
+    T, B, G = xw.shape
+    U, P = proj.shape
+    cdt = w_h.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be float32 or bfloat16, got {cdt}")
+    f32 = torch.float32
+    want = {"xw": ((T, B, G), cdt), "lengths": ((B,), torch.int32),
+            "w_h": ((P, G), cdt), "proj": ((U, P), cdt),
+            "bias": ((G,), f32), "wi": ((U,), f32), "wf": ((U,), f32),
+            "wo": ((U,), f32)}
+    got = dict(xw=xw, lengths=lengths, w_h=w_h, proj=proj, bias=bias, wi=wi,
+               wf=wf, wo=wo)
+    for name, (shape, dtype) in want.items():
+        t = got[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != xw.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {xw.device}")
+    if T < 1 or B < 1 or G != 4 * U:
+        raise ValueError(f"bad sizes T={T} B={B} G={G} U={U}")
+
+
+def _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
+                         save_acts):
+    """One launch of K1's row-group kernel on CUDA tensors."""
+    _check_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo)
+    T, B, G = xw.shape
+    U, P = proj.shape
+    cdt, dev = w_h.dtype, xw.device
+    with torch.cuda.device(dev):
+        plan = rowgroup_plan(B, U, P, cdt, resident.sm_count(dev))
+        wh_pk, wp_pk = pack_fwd_weights(w_h, proj, plan)
+        rows = torch.tensor(plan.row_bounds, dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        out = torch.empty((T, B, P), **f32)
+        if save_acts:
+            saved = (torch.empty((T, B, U), **f32),
+                     torch.empty((T, B, P), **f32),
+                     torch.empty((T, B, G), dtype=cdt, device=dev))
+            saved_ptrs = [t.data_ptr() for t in saved]
+        else:
+            saved, saved_ptrs = (None, None, None), [None] * 3
+        o = plan.offsets
+        params = resident.RowParams(
+            *(t.data_ptr() for t in (xw, lengths, wh_pk, wp_pk, bias, wi, wf,
+                                     wo, rows, out)),
+            *saved_ptrs, T, B, U, P, int(save_acts), plan.groups,
+            plan.group_rows, plan.ngrp,
+            plan.Kh, plan.ldh, plan.Np, plan.Km, plan.ldm, plan.ks,
+            plan.kchunk, plan.ldx, plan.xchunk, plan.n_res_h, plan.n_res_p,
+            o["x"], o["h"], o["m"], o["c"], o["hf"], o["part"], o["k"],
+            o["wh"], o["wp"], plan.smem)
+        resident.launch("lstm_fwd_rowgroup", params, cdt == torch.bfloat16,
+                        dev, f"T={T} B={B} U={U} P={P} {cdt}")
+    return (out,) + saved
+
+
 def lstm_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts=True):
-    """K1 (arguments and results as ``lstm_fwd_reference``). CUDA tensors
-    launch ``csrc/wavefront_fwd.cu`` at L = 1, residual off; with
+    """K1 (arguments and results as ``lstm_fwd_reference``). CPU tensors
+    take the twin; CUDA tensors launch the row-group kernel of
+    csrc/resident.cu (``rowgroup_plan``) or raise. With
     ``save_acts=False`` only ``out`` is computed (the rest is None)."""
     if xw.device.type == "cpu":
         return lstm_fwd_reference(xw, lengths, w_h, proj, bias, wi, wf, wo,
                                   save_acts)
     if xw.device.type != "cuda":
         raise ValueError(f"no LSTM forward kernel for device {xw.device}")
-    T, B, _ = xw.shape
-    P = proj.shape[1]
-    args = (xw, lengths, xw.new_empty((T, B, P), dtype=torch.float32),
-            w_h.new_empty((0, P, w_h.shape[1])), w_h[None], proj[None],
-            bias[None], wi[None], wf[None], wo[None])
-    args = tuple(a.contiguous() for a in args)
-    saved = wavefront._launch(*args, residual=False, save_acts=save_acts)
+    out = _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
+                               save_acts)
     lstm_fwd.launches += 1
-    if not save_acts:
-        return saved, None, None, None
-    taps, c_hist, h_hist, acts = saved
-    return taps[0], c_hist[0], h_hist[0], acts[0]
+    return out
 
 
 lstm_fwd.launches = 0  # kernel launches in this process

@@ -1,19 +1,20 @@
-"""What the two resident kernels of ``csrc/resident.cu`` share on the
-Python side: the ctypes parameter blocks, the library, the launch, and the
+"""What the resident kernels of ``csrc/resident.cu`` share on the Python
+side: the ctypes parameter blocks, the library, the launch, and the
 arithmetic of their plans.
 
 The plans themselves live beside their wrappers (``resident_plan`` in
-``ops/lstm_seq.py`` for K2 and in ``ops/wavefront.py`` for K4). A plan
-fixes the grid, which block owns which units and which P columns, the
-padded sizes of the in-block products and the shared-memory layout; the
-kernel reads all of it from the parameter block and computes none of it
-itself, so the CPU tests can check the partition without a card.
+``ops/lstm_seq.py`` for K2 and in ``ops/wavefront.py`` for K4,
+``rowgroup_plan`` in ``ops/lstm_seq.py`` for K1). A plan fixes the grid,
+which block owns which rows, units and P columns, the padded sizes of the
+in-block products and the shared-memory layout; the kernel reads all of
+it from the parameter block and computes none of it itself, so the CPU
+tests can check the partition without a card.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,11 +46,12 @@ def threads_per_sum(items: int) -> int:
 
 
 def layout(fixed: Dict[str, int], weights: List[Tuple[str, int, int]],
-           cap: int = SMEM_CAP):
+           cap: int = SMEM_CAP, multiple: Optional[Dict[str, int]] = None):
     """Shared-memory layout: every ``fixed`` region (name -> bytes), then
     as many rows of each weight region (name, row bytes, rows) as still fit,
-    in that order. Returns (offsets, resident rows per weight, total bytes),
-    or raises ValueError when the fixed regions alone exceed ``cap``."""
+    in that order, rounded down to ``multiple[name]`` rows where given.
+    Returns (offsets, resident rows per weight, total bytes), or raises
+    ValueError when the fixed regions alone exceed ``cap``."""
     offsets, total = {}, 0
     for name, size in fixed.items():
         offsets[name] = total
@@ -60,7 +62,8 @@ def layout(fixed: Dict[str, int], weights: List[Tuple[str, int, int]],
     rows = {}
     for name, row_bytes, n_rows in weights:
         offsets[name] = total
-        rows[name] = min(n_rows, (cap - total) // row_bytes)
+        step = (multiple or {}).get(name, 1)
+        rows[name] = min(n_rows, (cap - total) // row_bytes // step * step)
         total += round_up(rows[name] * row_bytes, ALIGN)
     return offsets, rows, total
 
@@ -90,10 +93,23 @@ class FwdParams(ctypes.Structure):
             "off_wp", "smem")])
 
 
+class RowParams(ctypes.Structure):
+    """``RowParams`` of csrc/resident.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "xw", "lengths", "wh_pk", "wp_pk", "bias", "wi", "wf", "wo", "rows",
+        "out", "c_hist", "h_hist", "acts")]
+        + [(n, ctypes.c_int) for n in (
+            "T", "B", "U", "P", "save", "groups", "grows", "ngrp", "Kh",
+            "ldh", "Np", "Km", "ldm", "ks", "kchunk", "ldx", "xchunk",
+            "n_res_h", "n_res_p", "off_x", "off_h", "off_m", "off_c",
+            "off_hf", "off_part", "off_k", "off_wh", "off_wp", "smem")])
+
+
 def library() -> ctypes.CDLL:
     lib = _build.load_library("resident")
     if lib.lstm_bwd_resident.argtypes is None:
-        for fn in (lib.lstm_bwd_resident, lib.wavefront_resident):
+        for fn in (lib.lstm_bwd_resident, lib.wavefront_resident,
+                   lib.lstm_fwd_rowgroup):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -101,7 +117,7 @@ def library() -> ctypes.CDLL:
         lib.resident_params_sizes.restype = ctypes.c_int
         lib.resident_error_string.argtypes = [ctypes.c_int]
         lib.resident_error_string.restype = ctypes.c_char_p
-        for which, struct in enumerate((BwdParams, FwdParams)):
+        for which, struct in enumerate((BwdParams, FwdParams, RowParams)):
             if lib.resident_params_sizes(which) != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} does not match "
                                    "csrc/resident.cu")
@@ -110,9 +126,9 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, params: ctypes.Structure, bf16: bool,
            device: torch.device, shape: str) -> None:
-    """Launch ``name`` (lstm_bwd_resident or wavefront_resident) on the
-    current stream of ``device``; raises RuntimeError on a refused launch,
-    with the shape in the message."""
+    """Launch ``name`` (lstm_bwd_resident, wavefront_resident or
+    lstm_fwd_rowgroup) on the current stream of ``device``; raises
+    RuntimeError on a refused launch, with the shape in the message."""
     lib = library()
     index = (device.index if device.index is not None
              else torch.cuda.current_device())

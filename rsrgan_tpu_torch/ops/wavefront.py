@@ -12,8 +12,9 @@ fall back from one to the other. Each counts its own launches. A shape
 the plan cannot hold raises, with the shape in the message.
 
 ``_launch`` runs the earlier kernel, ``csrc/wavefront_fwd.cu``, which
-streams its weights from L2: ``ops/lstm_seq.py`` launches it at L = 1 as
-K1, the D forward.
+streams its weights from L2; no path of the port calls it, and
+``chip_smoke.py`` times it beside the kernels that replaced it (K4 here,
+and at L = 1 K1, ``ops/lstm_seq.py`` ``lstm_fwd``).
 
 Differences from the TPU launcher, all TPU-only choices: no 128-lane gate
 padding (U stays 760), no rows-per-step coarsening, and the per-layer
@@ -100,8 +101,6 @@ def _library() -> ctypes.CDLL:
     if lib.wavefront_fwd.argtypes is None:
         lib.wavefront_fwd.argtypes = _ARGTYPES
         lib.wavefront_fwd.restype = ctypes.c_int
-        lib.wavefront_fwd_grid.argtypes = [ctypes.c_int] * 6
-        lib.wavefront_fwd_grid.restype = ctypes.c_int
         lib.wavefront_error_string.argtypes = [ctypes.c_int]
         lib.wavefront_error_string.restype = ctypes.c_char_p
     return lib
@@ -360,12 +359,3 @@ def lstm_wavefront_fwd_train(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
 
 lstm_wavefront_fwd_train.launches = 0  # kernel launches in this process
 
-
-def wavefront_grid(B: int, L: int, U: int, P: int, bf16: bool,
-                   device: int = 0) -> int:
-    """Blocks a launch at these sizes uses (co-resident cap applied)."""
-    grid = _library().wavefront_fwd_grid(B, L, U, P, int(bf16), device)
-    if grid < 0:
-        raise RuntimeError(f"wavefront grid query failed: CUDA error "
-                           f"{-grid}")
-    return grid

@@ -244,3 +244,71 @@ def test_resident_lstm_bwd(cuda_device, cdt, B_, U_):
     got = ls.lstm_bwd(*args)
     assert_close(got, ls.lstm_bwd_reference(*args), cdt)
     assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_bwd(*args)))
+
+
+# ---------------------------------------------------------------------------
+# K1's row-group kernel (csrc/resident.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 17, 33, 64])
+@pytest.mark.parametrize("U_,P_", [(13, 9), (200, 40)])
+@pytest.mark.parametrize("save_acts", [True, False])
+def test_rowgroup_lstm_fwd(cuda_device, cdt, rows, U_, P_, save_acts):
+    """K1 against its twin at 1-64 rows (one to four row groups, ragged
+    groups at 17 and 33), odd U and P, a zero-length row, with and without
+    the saved streams; one launch counted per call; two launches give the
+    same bits."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    rng = np.random.default_rng(rows + U_)
+    # Glorot's scale, as the model's layers: at U=200 the ±0.5 weights of
+    # the other tests make the 17-step recurrence amplify f32 rounding
+    # beyond 1e-5 in the twin itself
+    scale = min(0.5, (6 / (4 * U_ + P_)) ** 0.5)
+
+    def u(*shape):
+        return torch.tensor(rng.uniform(-scale, scale, shape),
+                            dtype=torch.float32, device=cuda_device)
+
+    lens = torch.tensor((LENS * rows)[:rows], dtype=torch.int32,
+                        device=cuda_device)
+    xw = torch.tensor(rng.normal(0, 0.5, (T, rows, 4 * U_)),
+                      dtype=torch.float32, device=cuda_device).to(cdt)
+    args = (xw, lens, u(P_, 4 * U_).to(cdt), u(U_, P_).to(cdt), u(4 * U_),
+            u(U_), u(U_), u(U_))
+    before = ls.lstm_fwd.launches
+    got = ls.lstm_fwd(*args, save_acts=save_acts)
+    assert ls.lstm_fwd.launches == before + 1
+    want = ls.lstm_fwd_reference(*args, save_acts=save_acts)
+    if not save_acts:
+        assert got[1:] == (None, None, None)
+        got, want = got[:1], want[:1]
+    assert_close(got, want, cdt)
+    again = ls.lstm_fwd(*args, save_acts=save_acts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_rowgroup_lstm_fwd_g_width(cuda_device, cdt):
+    """K1 at G's width (U=760, P=257), where the packed weights only partly
+    fit in shared memory and the rest is read from global memory."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    U_, P_, rows = 760, 257, 16
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert not ls.rowgroup_plan(rows, U_, P_, cdt, sms).weights_resident()
+    rng = np.random.default_rng(5)
+
+    def u(*shape, scale=0.05):
+        return torch.tensor(rng.uniform(-scale, scale, shape),
+                            dtype=torch.float32, device=cuda_device)
+
+    lens = torch.tensor((LENS * rows)[:rows], dtype=torch.int32,
+                        device=cuda_device)
+    args = (u(T, rows, 4 * U_, scale=1.0).to(cdt), lens,
+            u(P_, 4 * U_).to(cdt), u(U_, P_).to(cdt), u(4 * U_), u(U_),
+            u(U_), u(U_))
+    got = ls.lstm_fwd(*args)
+    assert_close(got, ls.lstm_fwd_reference(*args), cdt)
+    assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_fwd(*args)))
