@@ -20,11 +20,13 @@ JSON line each; any failure ends the run non-zero:
    output stream, in f32 and bf16, at the shapes the train step gives
    it: K4 in train mode (save_acts=True) at G's width, B=16, T=500; K1
    (the D forward, the row-group kernel) at 16 and 32 rows; K2 at G's
-   width (16 rows) and D's (16 rows); K3 at D's width, 32 rows; the
-   redesigned kernels (K4, K2, K1) also for bit-equal relaunches and
-   beside the streaming kernels they replaced. Then all four at small
-   odd shapes (U=13, P=9 and U=200, P=40; B=1, 3, 33 and 64; a
-   zero-length row), K1 also without its saved streams and at G's width.
+   width (16 rows) and D's (16 rows); K3 at D's width (the row-group walk
+   and its reduction) at 32 and 64 rows, and at G's width, B=32
+   (csrc/lstm_bwd.cu); the redesigned kernels (K4, K2, K1, K3) also for
+   bit-equal relaunches and beside the streaming kernels they replaced.
+   Then all four at small odd shapes (U=13, P=9 and U=200, P=40; B=1, 3,
+   33 and 64; a zero-length row), K1 also without its saved streams and
+   at G's width.
 4. grad — gradients of the full-width G stack and of D (16 and 32 rows)
    through the kernels' autograd Functions against the eager cell under
    autograd, f32.
@@ -36,7 +38,8 @@ JSON line each; any failure ends the run non-zero:
    before it and read after it); decode from its checkpoint; one f32
    train step on one batch through the kernels against --lstm_impl=scan;
    and one bf16 train step at T=600 under torch.profiler (device time by
-   kernel, device busy share).
+   kernel, device busy share; the D step's backward must show on K3's
+   row-group kernels and not on csrc/lstm_bwd.cu).
 6. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
@@ -96,6 +99,7 @@ DU, DP = 256, 40
 # through 500 dependent steps and 8,000-row sums gives ~1e-5; a pairing
 # or masking fault gives O(1).
 GRAD_TOL = 1e-3
+K3_GRADS = ("dxw", "dwh", "dproj", "dbias", "dwi", "dwf", "dwo")
 # Published peaks of one H100 SXM (dense), for the bounds.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -376,27 +380,35 @@ def torch_isfinite(t) -> bool:
 
 
 def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
-          streaming=None, steps=None, **extra):
+          streaming=None, steps=None, check=None, **extra):
     """Run kernel and twin on the same inputs, compare every stream, time
-    both (kernel over ``reps`` launches, twin once); a redesigned kernel
+    both (kernel over ``reps`` launches, twin over its one run); a
+    redesigned kernel
     (``streaming``: the kernel it replaced, which streams its weights
     from L2, on the same inputs) is also checked for bit-equal relaunches
     and timed beside it; with ``steps`` (the recurrence's length) also µs
-    per step; emit the phase."""
+    per step; with ``check`` (read after every launch) also that the calls
+    took the kernel they should; emit the phase."""
     import torch
     got = fn()
     torch.cuda.synchronize()
-    want = twin()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = twin()   # run once: compared and timed
+    end.record()
     torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
     errs, refs, ok = compare_streams(names, got, want, dtype_name, tol)
     ms = cuda_time_ms(fn, reps)
-    plain_ms = cuda_time_ms(twin, 1)
     if streaming is not None:
         extra["deterministic"] = same_bits(fn)
         extra["streaming_ms"] = cuda_time_ms(streaming, reps)
         ok = ok and extra["deterministic"]
     if steps:
         extra["us_per_step"] = ms * 1e3 / steps
+    if check is not None:
+        extra["route_ok"] = check()
+        ok = ok and extra["route_ok"]
     out = {"phase": "kernels_train", "kernel": name, "dtype": dtype_name,
            **extra, "max_abs_err": errs, "max_abs_ref": refs,
            "tol": TOL[dtype_name] if tol is None else tol,
@@ -430,7 +442,8 @@ def streaming_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo):
 
 
 def phase_kernels_train(dtype_name: str) -> list:
-    """K4 train mode, K1, K2 (G and D) and K3 at the train step's shapes."""
+    """K4 train mode, K1, K2 (G and D) and K3 (D, and G at B=32) at the
+    train step's shapes."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
@@ -471,10 +484,32 @@ def phase_kernels_train(dtype_name: str) -> list:
         **resident_grid(ls.resident_plan(B, U, P, cdt, sms)),
         **bwd_bound(U, P, B, TT, TRAIN_LENGTHS, dtype_name, acc=False)))
 
-    # D: K1 at 16 and 32 rows, K2 at 16, K3 at 32
-    for rows in (B, 2 * B):
+    # K3 at G's width (B=32, the CLI's default --batch_size, where every G
+    # layer's backward takes it): csrc/lstm_bwd.cu, on one layer's
+    # training-forward streams; two launches, one twin run
+    g_lens = TRAIN_LENGTHS * 2
+    args32 = kernel_inputs(10, 1, U, P, 2 * B, TT, g_lens, cdt, "cuda")
+    _, c_s, h_s, acts = lstm_wavefront_fwd_train(*args32, residual=False)
+    dout = torch.from_numpy(
+        rng.normal(size=(TT, 2 * B, P)).astype(np.float32)).cuda()
+    _, lens32, _, _, wh, proj, _, wi, wf, wo = args32
+    g3_args = (acts[0], lens32, dout, c_s[0], h_s[0], wh[0], proj[0], wi[0],
+               wf[0], wo[0])
+    before = ls.lstm_bwd_acc.streaming_launches
+    results.append(timed(
+        "lstm_bwd_acc", dtype_name, lambda: ls.lstm_bwd_acc(*g3_args),
+        lambda: ls.lstm_bwd_acc_reference(*g3_args), K3_GRADS, reps=2,
+        # the route: every call (1 + 2 timed) launched csrc/lstm_bwd.cu
+        check=lambda: ls.lstm_bwd_acc.streaming_launches == before + 3,
+        net="G", U=U, P=P, B=2 * B, T=TT, design="streaming",
+        grid=ls.lstm_bwd_grid(2 * B, U, P, True, bf16),
+        **bwd_bound(U, P, 2 * B, TT, g_lens, dtype_name, acc=True)))
+
+    # D: K1 at 16 and 32 rows, K2 at 16, K3 at 32 and 64 (the D step at
+    # --batch_size 16 and 32)
+    for rows in (B, 2 * B, 4 * B):
         rng = np.random.default_rng(7 + rows)
-        d_lens = (TRAIN_LENGTHS * 2)[:rows]
+        d_lens = (TRAIN_LENGTHS * 4)[:rows]
         prm = layer_params(rng, DP, DU, DP, cdt, "cuda")
         x = torch.from_numpy(
             rng.normal(size=(TT, rows, DP)).astype(np.float32)).cuda()
@@ -482,13 +517,14 @@ def phase_kernels_train(dtype_name: str) -> list:
         lens_t = torch.tensor(d_lens, dtype=torch.int32, device="cuda")
         k1_args = (xw, lens_t, prm["w_h"], prm["proj"], prm["bias"],
                    prm["wi"], prm["wf"], prm["wo"])
-        results.append(timed(
-            "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
-            lambda: ls.lstm_fwd_reference(*k1_args), streams4,
-            streaming=lambda: streaming_fwd(*k1_args), steps=TT,
-            net="D", U=DU, P=DP, B=rows, T=TT,
-            **rowgroup_grid(ls.rowgroup_plan(rows, DU, DP, cdt, sms)),
-            **k1_bound(DU, DP, rows, TT, d_lens, dtype_name)))
+        if rows <= 2 * B:
+            results.append(timed(
+                "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
+                lambda: ls.lstm_fwd_reference(*k1_args), streams4,
+                streaming=lambda: streaming_fwd(*k1_args), steps=TT,
+                net="D", U=DU, P=DP, B=rows, T=TT,
+                **rowgroup_grid(ls.rowgroup_plan(rows, DU, DP, cdt, sms)),
+                **k1_bound(DU, DP, rows, TT, d_lens, dtype_name)))
         out, c_h, h_h, d_acts = ls.lstm_fwd(*k1_args)
         d_dout = torch.from_numpy(
             rng.normal(size=(TT, rows, DP)).astype(np.float32)).cuda()
@@ -504,13 +540,19 @@ def phase_kernels_train(dtype_name: str) -> list:
                 **resident_grid(ls.resident_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=False)))
         else:
+            before = ls.lstm_bwd_acc.launches
             results.append(timed(
                 "lstm_bwd_acc", dtype_name,
                 lambda: ls.lstm_bwd_acc(*common, h_h, *weights),
                 lambda: ls.lstm_bwd_acc_reference(*common, h_h, *weights),
-                ("dxw", "dwh", "dproj", "dbias", "dwi", "dwf", "dwo"),
-                net="D", U=DU, P=DP, B=rows, T=TT,
-                grid=ls.lstm_bwd_grid(rows, DU, DP, True, bf16),
+                K3_GRADS,
+                streaming=lambda: ls._launch_bwd(*common, h_h, *weights,
+                                                 acc=True),
+                # the route: every call (1 + 5 timed + 2 relaunches) took
+                # the row-group walk
+                check=lambda: ls.lstm_bwd_acc.launches == before + 8,
+                steps=TT, net="D", U=DU, P=DP, B=rows, T=TT,
+                **rowgroup_grid(ls.rowgroup_bwd_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=True)))
     return results
 
@@ -521,8 +563,9 @@ def phase_kernels_train_small() -> dict:
     U=200, P=40: units that do not divide the grid; K1 also without its
     saved streams, and at G's width, U=760, P=257, where its weights only
     partly fit in shared memory), f32, a zero-length row, absolute 1e-5
-    scaled as above; the redesigned kernels (K4, K2, K1) also checked for
-    bit-equal relaunches. K3 takes any row count."""
+    scaled as above; the redesigned kernels (K4, K2, K1, K3) also checked
+    for bit-equal relaunches. K3 takes any row count (here always its
+    row-group walk)."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd_reference,
@@ -578,10 +621,11 @@ def phase_kernels_train_small() -> dict:
               ls.lstm_bwd_reference(*common, *weights))
         deterministic(f"lstm_bwd_{tag}",
                       lambda: ls.lstm_bwd(*common, *weights))
-        check(f"lstm_bwd_acc_{tag}", ("dxw", "dwh", "dproj", "dbias",
-                                        "dwi", "dwf", "dwo"),
+        check(f"lstm_bwd_acc_{tag}", K3_GRADS,
               ls.lstm_bwd_acc(*common, got[2], *weights),
               ls.lstm_bwd_acc_reference(*common, got[2], *weights))
+        deterministic(f"lstm_bwd_acc_{tag}",
+                      lambda: ls.lstm_bwd_acc(*common, got[2], *weights))
     # K1 at G's width: the weight rows past shared memory come from L2
     prm = layer_params(rng, P, U, P, f32, "cuda")
     x = torch.from_numpy(rng.normal(size=(T_, B, P)).astype(np.float32))
@@ -792,7 +836,9 @@ def profile_train_step(tr_list: str) -> dict:
     ours = {name: sum(v for k, v in by_kernel.items() if name in k)
             for name in ("wavefront_resident_kernel",
                          "lstm_bwd_resident_kernel",
-                         "lstm_fwd_rowgroup_kernel", "lstm_bwd_kernel")}
+                         "lstm_fwd_rowgroup_kernel",
+                         "lstm_bwd_rowgroup_kernel", "lstm_wgrad_kernel",
+                         "lstm_bwd_kernel")}
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     return {"T": int(batch.inputs.shape[1]), "B": B,
             "true_frames": int(batch.lengths.sum()), "wall_ms": wall_ms,
@@ -817,12 +863,18 @@ def phase_train(work: str) -> dict:
     os.makedirs(data_dir)
     tr_list, cv_list = write_corpus(data_dir, rng)
     save_dir = os.path.join(work, "train_exp")
-    counters = {"wavefront_fwd_train": wf.lstm_wavefront_fwd_train,
-                "lstm_fwd": ls.lstm_fwd, "lstm_bwd": ls.lstm_bwd,
-                "lstm_bwd_acc": ls.lstm_bwd_acc,
-                "wavefront_fwd": wf.lstm_wavefront_fwd}
-    for fn in counters.values():
-        fn.launches = 0
+    # name -> (wrapper, its count); lstm_bwd_acc counts the row-group walk
+    # and csrc/lstm_bwd.cu apart
+    counters = {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train,
+                                        "launches"),
+                "lstm_fwd": (ls.lstm_fwd, "launches"),
+                "lstm_bwd": (ls.lstm_bwd, "launches"),
+                "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
+                "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc,
+                                           "streaming_launches"),
+                "wavefront_fwd": (wf.lstm_wavefront_fwd, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     t0 = time.monotonic()
     rc = train_cli.main(["--trainer=gan_rnn", "--g_type=res_lstm_l",
                          "--batch_size=16", "--min_epoches=1",
@@ -833,7 +885,8 @@ def phase_train(work: str) -> dict:
                          f"--save_dir={save_dir}", "--seed=5"])
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
     if rc != 0:
         raise RuntimeError(f"training returned {rc}")
     with open(os.path.join(save_dir, "metrics_train.jsonl")) as f:
@@ -860,14 +913,21 @@ def phase_train(work: str) -> dict:
     profile = profile_train_step(tr_list)
     main_path = ("wavefront_fwd_train", "lstm_fwd", "lstm_bwd",
                  "lstm_bwd_acc")
+    # the profiled step's D-step backward on K3's row-group kernels, and
+    # none of it on csrc/lstm_bwd.cu (B=16: no G layer reaches K3)
+    hand = profile["hand_kernels_ms"]
+    k3_rowgroup = (hand["lstm_bwd_rowgroup_kernel"] > 0
+                   and hand["lstm_wgrad_kernel"] > 0
+                   and hand["lstm_bwd_kernel"] == 0)
     out = {"phase": "train", "seconds": secs, "launches": launches,
            "steps": row["train_steps"], "train_secs": row["train_secs"],
            "train_frames_per_s": row["train_frames_per_sec"],
            "ms_per_iteration": 1e3 * row["train_secs"] / row["train_steps"],
            "losses": losses, "checkpoint": os.path.basename(ckpt or ""),
            "decode_ok": decode_ok, "parity_f32": parity,
-           "profile_bf16_step": profile,
+           "profile_bf16_step": profile, "k3_rowgroup_in_step": k3_rowgroup,
            "ok": (all(launches[k] > 0 for k in main_path)
+                  and launches["lstm_bwd_acc_streaming"] == 0 and k3_rowgroup
                   and all(np.isfinite(v) for v in losses.values())
                   and ckpt is not None and decode_ok and parity["ok"])}
     emit(out)
@@ -986,7 +1046,6 @@ def kernels_line(results: dict) -> dict:
     """One entry per kernel: launches from the main-path runs (train and
     decode phases), error and times from the bf16 kernel phases at the
     main path's shapes, bounds from those phases' inputs."""
-    bwd = "rsrgan_tpu_torch/csrc/lstm_bwd.cu"
     dec = results["kernel"]["bfloat16"]
     entries = [kernel_entry(
         "wavefront_fwd (decode, save_acts=False)", RESIDENT, REPLACES,
@@ -1011,7 +1070,9 @@ def kernels_line(results: dict) -> dict:
                 (("lstm_bwd", "D", B), "lstm_bwd (K2, D layer, B=16)",
                  RESIDENT, "rsrgan_tpu/ops/pallas_lstm.py:196"),
                 (("lstm_bwd_acc", "D", 2 * B),
-                 "lstm_bwd_acc (K3, D step, 32 rows)", bwd,
+                 "lstm_bwd_acc (K3, D step, 32 rows: the row-group walk "
+                 "lstm_bwd_rowgroup_kernel, then its reduction "
+                 "lstm_wgrad_kernel)", RESIDENT,
                  "rsrgan_tpu/ops/pallas_lstm.py:364")):
             r = by_name[key]
             entries.append(kernel_entry(label, source, replaces,

@@ -2,11 +2,12 @@
 // the forward's saved gate activations, in the first, L2-streaming
 // design.
 //
-// The main path now runs this source for K3 only (acc = 1,
-// ops/lstm_seq.py `lstm_bwd_acc`, the D step's backward). K2 runs the
-// resident kernel of csrc/resident.cu, which keeps its weights in shared
-// memory; chip_smoke.py still launches acc = 0 here to time it beside
-// that one. Everything below describes this streaming design.
+// Only K3 at G width runs this source now (acc = 1, ops/lstm_seq.py
+// `lstm_bwd_acc`: every G layer's backward at B >= 32, the CLI's default
+// batch). K3 on the D layer and K2 run the kernels of csrc/resident.cu,
+// which keep their weights in shared memory; chip_smoke.py still
+// launches both modes here to time them beside those. Everything below
+// describes this streaming design.
 //
 // Replaces two TPU kernels of rsrgan_tpu/ops/pallas_lstm.py:
 // * `_bwd_kernel` (launched by `_bwd_pallas`, K2): per step it emits the

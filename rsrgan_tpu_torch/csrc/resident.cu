@@ -1,8 +1,9 @@
 // The LSTM recurrences for Hopper with their weights resident in shared
 // memory: the G-width ones across a persistent grid of one block per SM,
-// the single-layer forward (K1) in one block per group of 16 rows.
+// the single-layer forward (K1) and the single-layer reverse walk with its
+// weight gradients (K3) in one block per group of 16 rows.
 //
-// Two kernels, one design (the third, K1, is described at its section
+// Two kernels, one design (K1 and K3 are described at their sections
 // below):
 // * lstm_bwd_resident_kernel replaces rsrgan_tpu/ops/pallas_lstm.py
 //   `_bwd_kernel` (launched by `_bwd_pallas`, K2): the reverse walk over the
@@ -138,6 +139,12 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 __device__ __forceinline__ void prefetch_span(const void* p, size_t bytes) {
   prefetch_l2(p);
   prefetch_l2(static_cast<const char*>(p) + bytes - 1);
+}
+// A span of any length into L2, one 128-byte line a thread of the block.
+__device__ __forceinline__ void prefetch_lines(const void* p, size_t bytes) {
+  for (size_t i = (size_t)threadIdx.x * 128; i < bytes;
+       i += (size_t)blockDim.x * 128)
+    prefetch_l2(static_cast<const char*>(p) + i);
 }
 
 // The row of flat index e < 2^24 in rows of n columns, from the
@@ -846,8 +853,13 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
                      smem_addr(dst)),
                  "l"(src)
                  : "memory");
-  else
+  else if (bytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                      smem_addr(dst)),
                  "l"(src)
                  : "memory");
@@ -1066,12 +1078,10 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 
   SECTIONS_START;
   for (int t = 0; t < p.T; ++t) {
-    if (t + 2 < p.T) {  // step t + 2's xw rows into L2
-      const char* base = static_cast<const char*>(p.xw) +
-                         ((size_t)(t + 2) * p.B + row0) * G * sizeof(W);
-      for (size_t i = threadIdx.x; i * 128 < step_bytes; i += kRowThreads)
-        prefetch_l2(base + i * 128);
-    }
+    if (t + 2 < p.T)  // step t + 2's xw rows into L2
+      prefetch_lines(static_cast<const char*>(p.xw) +
+                         ((size_t)(t + 2) * p.B + row0) * G * sizeof(W),
+                     step_bytes);
     // the peephole cell of (row, unit u) from its four gate products;
     // reads xw from s_x and leaves the activations in its place
     auto cell = [&](int row, int u, const float* pre) {
@@ -1222,6 +1232,502 @@ __global__ void __launch_bounds__(kRowThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: the single-layer reverse walk with its weight gradients, one block per
+// group of at most 16 rows (lstm_bwd_rowgroup_kernel), then the reduction
+// of the weight gradients (lstm_wgrad_kernel).
+//
+// Replaces rsrgan_tpu/ops/pallas_lstm.py `_bwd_kernel_acc` (launched by
+// `_bwd_pallas_acc`): the reverse walk over the forward's saved gate
+// activations, emitting dgates (dxw), with dW_h, dproj, dbias and the
+// peephole gradients summed in the kernel over all T·B row-steps.
+//
+// What bounds it on the card: as K1, T dependent steps of two small
+// products (D, per row: 40 × 256 for dm = dh_total·projᵀ, 1024 × 40 for
+// dh = dgates·W_hᵀ) with the reverse cell between them; the weight-gradient
+// products (T·B·5·U·P multiply-adds, 1.6 GFLOP at D width, 32 rows, T=500)
+// have no step dependency. The first port (csrc/lstm_bwd.cu, acc = 1) split
+// each step over a cooperative grid between two grid barriers, re-read W_hᵀ
+// and projᵀ from L2 every step and reduced an f32 dgates stream [T, B, 4U]
+// after the walk (8.6 ms at D width, 32 rows, T=500 on an H100).
+//
+// What this design does about it:
+// * the walk is K1's design run backwards: rows are independent in the
+//   reverse walk too, so a block owns a group of rows (one row a block at
+//   the D step's 32 and 64 rows) and walks all T steps alone, a plain
+//   launch with block barriers only. The Python plan (`rowgroup_bwd_plan`
+//   in ops/lstm_seq.py) fixes the groups, sizes and offsets;
+// * the block copies proj (packed row u = proj[u, :], the B operand of dm)
+//   and W_h (row p = W_h[p, :], the B operand of dh) into shared memory
+//   once: the whole D layer, ~111 KB in bf16. Rows that do not fit (larger
+//   groups) are read from the same packed weights in global memory;
+// * a step: warp w computes the dm tiles of its unit groups (K1's owner
+//   rule: q = w, w + 16, ...), and each of its lanes runs the reverse cell
+//   of one unit of them right away, row by row, with no block barrier in
+//   between. The dc carry stays in shared memory; the owning lane adds its
+//   unit's dbias, dw_i, dw_f and dw_o terms in registers over the whole
+//   walk and writes them once, as its group's partial (no f32 dgates
+//   stream). dgates (W) go to the dh product's A operand; a barrier; dxw
+//   leaves from there in coalesced chunks, the next step's acts and c(t-2)
+//   arrive by cp.async, the epilogue's threads load dout(t-1), and the
+//   warps split the dh product into (8-column tile, K chunk) tasks (D: 5
+//   tiles x 3 chunks of 22 k-steps) with f32 partials; a barrier; the
+//   epilogue sums the chunks in chunk order, masks the dh carry and writes
+//   dh_total(t-1), rounded to W, into the dm product's A operand and,
+//   masked, to the dh stream; a barrier;
+// * bf16 products on mma.sync fed by ldmatrix (A padded to 16 rows); f32
+//   on CUDA cores with the A operands holding the group's rows only, so
+//   that the f32 D layer fits as well (at one row a block): dm by the
+//   cell's lane (its unit's proj row), dh one warp an output over all of
+//   K with a shuffle tree (the plan then has one K chunk);
+// * lstm_wgrad_kernel then sums dW_h = Σ round_W(h(t-1))ᵀ·dxw(t) and
+//   dproj = Σ m_maskedᵀ·dh_masked over the T·B row-steps, K split over
+//   enough blocks to fill the card, a 64 × 64 output tile a block on CUDA
+//   cores; the last block of a tile to finish sums its splits in split
+//   order, and dbias and the peepholes are the walk's group partials summed
+//   in group order. Every output is summed in one fixed order, with no
+//   atomics on values: relaunches give the same bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kEpi = 2;  // epilogue elements a thread: group rows × P ≤ 1024
+
+struct RowBwdParams {
+  const void* acts;     // [T, B, G] W, forward gate activations
+  const int* lengths;   // [B]
+  const float* dout;    // [T, B, P]
+  const float* c_hist;  // [T, B, U] post-mask cell state
+  const void* wp_pk;    // [ngrp * 8][ld1] W: row u = proj[u, :P] (zero
+                        //   past U)
+  const void* wh_pk;    // [Np][ld2] W: row p = W_h[p, :G] (zero past P)
+  const float* wi;      // [U] peepholes
+  const float* wf;
+  const float* wo;
+  const int* rows;      // row_bounds[groups + 1]
+  void* dxw;            // [T, B, G] W
+  void* m_out;          // [T, B, U] W, masked m
+  void* dh_out;         // [T, B, P] W, masked dh_total
+  float* part;          // [groups][7U]: dbias [4U], dw_i, dw_f, dw_o [U]
+  int T, B, U, P, groups, grows, ngrp, K1, ld1, K2, ld2, Np, ks, kchunk;
+  int lda, achunk, ldc, cchunk, n_res_p, n_res_h;
+  int off_a1, off_a2, off_dm, off_acts, off_c, off_dc, off_part, off_len;
+  int off_wp, off_wh, smem;
+};
+
+// nrows rows of row_bytes (a multiple of chunk: 16, 8 or 4 bytes, as are
+// the shared-memory row stride and both bases), consecutive in global
+// memory, into shared memory by cp.async, chunk bytes a thread at a time.
+__device__ __forceinline__ void stage_rows(void* dst, int dst_ld,
+                                           const void* src, int nrows,
+                                           int row_bytes, int chunk) {
+  const int per_row = row_bytes / chunk;
+  for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i - r * per_row) * chunk;
+    cp_async(static_cast<char*>(dst) + (size_t)r * dst_ld + c,
+             static_cast<const char*>(src) + (size_t)r * row_bytes + c,
+             chunk);
+  }
+}
+
+// The reverse: nrows rows from shared memory (stride src_ld) to
+// consecutive rows in global memory, in 16- or 8-byte chunks.
+__device__ __forceinline__ void unstage_rows(void* dst, const void* src,
+                                             int src_ld, int nrows,
+                                             int row_bytes, int chunk) {
+  const int per_row = row_bytes / chunk;
+  for (int i = threadIdx.x; i < nrows * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = (i - r * per_row) * chunk;
+    char* d = static_cast<char*>(dst) + (size_t)r * row_bytes + c;
+    const char* s = static_cast<const char*>(src) + (size_t)r * src_ld + c;
+    if (chunk == 16)
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    else
+      *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s);
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kRowThreads, 1)
+    lstm_bwd_rowgroup_kernel(const RowBwdParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kBf16 = sizeof(W) == 2;
+  const int B = p.B, U = p.U, P = p.P, G = 4 * U, Nu = 8 * p.ngrp;
+  const int row0 = p.rows[blockIdx.x];
+  const int nrows = p.rows[blockIdx.x + 1] - row0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the A operands, 16 rows in bf16 (mma) and the group's in f32
+  W* s_a1 = reinterpret_cast<W*>(smem + p.off_a1);  // [rows][ld1] dh_total
+  W* s_a2 = reinterpret_cast<W*>(smem + p.off_a2);  // [rows][ld2] dgates
+  float* s_dm = reinterpret_cast<float*>(smem + p.off_dm);  // [rows][Nu]
+  W* s_acts = reinterpret_cast<W*>(smem + p.off_acts);      // [rows][lda]
+  // [2][grows][ldc]: slot t & 1 holds c(t)
+  float* s_c = reinterpret_cast<float*>(smem + p.off_c);
+  float* s_dc = reinterpret_cast<float*>(smem + p.off_dc);  // [rows][U]
+  float* s_part =
+      reinterpret_cast<float*>(smem + p.off_part);  // [ks][grows][Np]
+  int* s_len = reinterpret_cast<int*>(smem + p.off_len);  // [16]
+  W* s_wp = reinterpret_cast<W*>(smem + p.off_wp);
+  W* s_wh = reinterpret_cast<W*>(smem + p.off_wh);
+  const W* g_wp = static_cast<const W*>(p.wp_pk);
+  const W* g_wh = static_cast<const W*>(p.wh_pk);
+  const W* acts = static_cast<const W*>(p.acts);
+  W* dh_out = static_cast<W*>(p.dh_out);
+  const size_t slot = (size_t)p.grows * p.ldc;
+  const int a_bytes = G * (int)sizeof(W), c_bytes = U * 4;
+  const int n_el = nrows * P;  // the epilogue's elements
+  const float inv_p = 1.0f / P;
+  auto at = [&](int t) { return (size_t)t * B + row0; };  // step t's row 0
+
+  // step T-1's acts, c(T-1) and c(T-2) in; the weights; the A operands'
+  // pads (rows past nrows, K past P or 4U) stay zero for the whole walk
+  stage_rows(s_acts, p.lda * (int)sizeof(W), acts + at(p.T - 1) * G, nrows,
+             a_bytes, p.achunk);
+  for (int t = p.T - 1; t >= 0 && t >= p.T - 2; --t)
+    stage_rows(s_c + (t & 1) * slot, p.ldc * 4, p.c_hist + at(t) * U, nrows,
+               c_bytes, p.cchunk);
+  copy_to_shared(s_wp, g_wp, (size_t)p.n_res_p * p.ld1 * sizeof(W));
+  copy_to_shared(s_wh, g_wh, (size_t)p.n_res_h * p.ld2 * sizeof(W));
+  const int a_rows = kBf16 ? kRows : p.grows;  // mma tiles take 16 rows
+  for (int i = threadIdx.x; i < a_rows * p.ld1; i += kRowThreads)
+    s_a1[i] = to_w<W>(0.0f);
+  for (int i = threadIdx.x; i < a_rows * p.ld2; i += kRowThreads)
+    s_a2[i] = to_w<W>(0.0f);
+  for (int i = threadIdx.x; i < nrows * U; i += kRowThreads) s_dc[i] = 0.0f;
+  for (int i = threadIdx.x; i < nrows; i += kRowThreads)
+    s_len[i] = p.lengths[row0 + i];
+  __syncthreads();
+  // dh_total(T-1) = dout(T-1): the dh carry starts at zero. Thread and
+  // element stay paired for the whole walk, so the carry lives in dh[].
+  float dh[kEpi];
+#pragma unroll
+  for (int i = 0; i < kEpi; ++i) {
+    dh[i] = 0.0f;
+    const int e = threadIdx.x + i * kRowThreads;
+    if (e < n_el) {
+      const int b = row_of(e, P, inv_p), col = e - b * P;
+      const float v = p.dout[at(p.T - 1) * P + e];
+      s_a1[b * p.ld1 + col] = to_w<W>(v);
+      store(dh_out + at(p.T - 1) * P + e, p.T - 1 < s_len[b] ? v : 0.0f);
+    }
+  }
+  // the warp's unit groups (at most 4) and this lane's unit: lane l runs
+  // the cell of unit l % 8 of group warp + 16 * (l / 8)
+  const int own = warp < p.ngrp ? (p.ngrp - 1 - warp) / kRowWarps + 1 : 0;
+  const int u = 8 * (warp + (lane / 8) * kRowWarps) + lane % 8;
+  const bool cell_lane = lane / 8 < own && u < U;
+  const float wi = cell_lane ? p.wi[u] : 0.0f;
+  const float wf = cell_lane ? p.wf[u] : 0.0f;
+  const float wo = cell_lane ? p.wo[u] : 0.0f;
+  float acc[7] = {};  // dbias i, j, f, o; dw_i, dw_f, dw_o of unit u
+  cp_async_wait_all();
+  __syncthreads();
+
+  SECTIONS_START;
+  for (int t = p.T - 1; t >= 0; --t) {
+    if (t >= 2) {  // step t - 2's streams into L2
+      prefetch_lines(acts + at(t - 2) * G, (size_t)nrows * a_bytes);
+      prefetch_lines(p.dout + at(t - 2) * P, (size_t)n_el * 4);
+      if (t >= 3)
+        prefetch_lines(p.c_hist + at(t - 3) * U, (size_t)nrows * c_bytes);
+    }
+    // dm = dh_total · projᵀ for the warp's unit groups, into s_dm
+    if constexpr (kBf16) {
+      for (int j = 0; j < own; ++j) {
+        const int q = warp + j * kRowWarps;
+        const bool res = (q + 1) * 8 <= p.n_res_p;
+        float c[4] = {};
+        proj_tile((const W*)s_a1,
+                  (res ? s_wp : g_wp) + (size_t)q * 8 * p.ld1, res, p.ld1, 0,
+                  p.K1, P, c);
+        const int row = lane / 4, col = 8 * q + 2 * (lane % 4);
+        if (row < nrows) {
+          s_dm[row * Nu + col] = c[0];
+          s_dm[row * Nu + col + 1] = c[1];
+        }
+        if (row + 8 < nrows) {
+          s_dm[(row + 8) * Nu + col] = c[2];
+          s_dm[(row + 8) * Nu + col + 1] = c[3];
+        }
+      }
+    } else if (cell_lane) {
+      // f32 on CUDA cores: the cell's lane dots its unit's proj row with
+      // each row's dh_total (the A operand has the group's rows only)
+      const bool res = u < p.n_res_p;
+      const W* w = (res ? s_wp : g_wp) + (size_t)u * p.ld1;
+      for (int b = 0; b < nrows; ++b) {
+        const W* a = s_a1 + (size_t)b * p.ld1;
+        float v = 0.0f;
+#pragma unroll 4
+        for (int k = 0; k < P; ++k)
+          v = fmaf(a[k], res ? w[k] : __ldg(w + k), v);
+        s_dm[b * Nu + u] = v;
+      }
+    }
+    __syncwarp();
+    // the peephole cell's reverse math for unit u, row by row
+    if (cell_lane) {
+      const float* c_cur = s_c + (t & 1) * slot;
+      const float* c_pre = s_c + ((t + 1) & 1) * slot;  // c(t-1) if t > 0
+      for (int b = 0; b < nrows; ++b) {
+        const bool live = t < s_len[b];
+        const float dm = live ? s_dm[b * Nu + u] : 0.0f;
+        const W* a = s_acts + (size_t)b * p.lda + u;
+        const float si = to_f(a[0]), tj = to_f(a[U]), sf = to_f(a[2 * U]),
+                    so = to_f(a[3 * U]);
+        const float c_new = c_cur[b * p.ldc + u];
+        const float c_prev = t > 0 ? c_pre[b * p.ldc + u] : 0.0f;
+        const float tc = tanhf(c_new);
+        const float dc_old = s_dc[b * U + u];
+        const float d_o = dm * tc * so * (1.0f - so);
+        const float dc_total = (live ? dc_old : 0.0f) +
+                               dm * so * (1.0f - tc * tc) + d_o * wo;
+        const float d_f = dc_total * c_prev * sf * (1.0f - sf);
+        const float d_i = dc_total * tj * si * (1.0f - si);
+        const float d_j = dc_total * si * (1.0f - tj * tj);
+        s_dc[b * U + u] = live ? dc_total * sf + d_f * wf + d_i * wi : dc_old;
+        const float dgate[4] = {live ? d_i : 0.0f, live ? d_j : 0.0f,
+                                live ? d_f : 0.0f, live ? d_o : 0.0f};
+        W* g = s_a2 + (size_t)b * p.ld2 + u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          g[k * U] = to_w<W>(dgate[k]);
+          acc[k] += dgate[k];
+        }
+        if (live) {
+          acc[4] += d_i * c_prev;
+          acc[5] += d_f * c_prev;
+          acc[6] += d_o * c_new;
+        }
+        store(static_cast<W*>(p.m_out) + (at(t) + b) * U + u,
+              live ? so * tc : 0.0f);
+      }
+    }
+    __syncthreads();
+    SECTION_END(0);
+    // dxw(t) out of s_a2; step t-1's acts and c(t-2) in; dout(t-1) into
+    // the epilogue's registers; then the dh product's (tile, K chunk)
+    // partials
+    unstage_rows(static_cast<W*>(p.dxw) + at(t) * G, s_a2,
+                 p.ld2 * (int)sizeof(W), nrows, a_bytes, p.achunk);
+    if (t > 0)
+      stage_rows(s_acts, p.lda * (int)sizeof(W), acts + at(t - 1) * G, nrows,
+                 a_bytes, p.achunk);
+    if (t > 1)
+      stage_rows(s_c + (t & 1) * slot, p.ldc * 4, p.c_hist + at(t - 2) * U,
+                 nrows, c_bytes, p.cchunk);
+    float dn[kEpi];
+#pragma unroll
+    for (int i = 0; i < kEpi; ++i) {
+      const int e = threadIdx.x + i * kRowThreads;
+      dn[i] = t > 0 && e < n_el ? __ldg(p.dout + at(t - 1) * P + e) : 0.0f;
+    }
+    if constexpr (kBf16) {
+      const int n_tiles = p.Np / 8;
+      for (int task = warp; task < n_tiles * p.ks; task += kRowWarps) {
+        const int tile = task % n_tiles, ck = task / n_tiles;
+        const bool res = (tile + 1) * 8 <= p.n_res_h;
+        const int k0 = ck * p.kchunk * 16;
+        float c[4] = {};
+        proj_tile((const W*)s_a2,
+                  (res ? s_wh : g_wh) + (size_t)tile * 8 * p.ld2, res, p.ld2,
+                  k0, min(k0 + p.kchunk * 16, p.K2), G, c);
+        float* part = s_part + (size_t)ck * p.grows * p.Np + tile * 8 +
+                      2 * (lane % 4);
+        const int row = lane / 4;
+        if (row < nrows) {
+          part[row * p.Np] = c[0];
+          part[row * p.Np + 1] = c[1];
+        }
+        if (row + 8 < nrows) {
+          part[(row + 8) * p.Np] = c[2];
+          part[(row + 8) * p.Np + 1] = c[3];
+        }
+      }
+    } else {
+      // f32 on CUDA cores (the plan's one chunk): a warp an output (row,
+      // column), its lanes striding over K, then a shuffle tree (a fixed
+      // order)
+      for (int o = warp; o < n_el; o += kRowWarps) {
+        const int b = o / P, col = o - b * P;
+        const bool res = col < p.n_res_h;
+        const W* w = (res ? s_wh : g_wh) + (size_t)col * p.ld2;
+        const W* a = s_a2 + (size_t)b * p.ld2;
+        float v = 0.0f, v2 = 0.0f;  // two chains, added last
+        int k = lane;
+        for (; k + 32 < G; k += 64) {
+          v = fmaf(a[k], res ? w[k] : __ldg(w + k), v);
+          v2 = fmaf(a[k + 32], res ? w[k + 32] : __ldg(w + k + 32), v2);
+        }
+        if (k < G) v = fmaf(a[k], res ? w[k] : __ldg(w + k), v);
+        v += v2;
+#pragma unroll
+        for (int s = 16; s > 0; s /= 2)
+          v += __shfl_xor_sync(0xffffffffu, v, s);
+        if (lane == 0) s_part[b * p.Np + col] = v;
+      }
+    }
+    __syncthreads();
+    SECTION_END(1);
+    // the epilogue: the chunks summed in chunk order, the masked dh carry,
+    // and dh_total(t-1) = dout(t-1) + dh
+#pragma unroll
+    for (int i = 0; i < kEpi; ++i) {
+      const int e = threadIdx.x + i * kRowThreads;
+      if (e < n_el) {
+        const int b = row_of(e, P, inv_p), col = e - b * P;
+        float v = 0.0f;
+        for (int ck = 0; ck < p.ks; ++ck)
+          v += s_part[((size_t)ck * p.grows + b) * p.Np + col];
+        if (t < s_len[b]) dh[i] = v;  // a masked step passes dh through
+        if (t > 0) {
+          const float d = dn[i] + dh[i];
+          s_a1[b * p.ld1 + col] = to_w<W>(d);
+          store(dh_out + at(t - 1) * P + e, t - 1 < s_len[b] ? d : 0.0f);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    SECTION_END(2);
+  }
+  if (cell_lane) {
+    float* out = p.part + (size_t)blockIdx.x * 7 * U + u;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) out[k * U] = acc[k];
+  }
+}
+
+constexpr int kWgThreads = 256;
+constexpr int kWgTile = 64;  // an output tile's edge
+constexpr int kWgK = 32;     // K rows staged at a time
+
+struct WgradParams {
+  const float* h_hist;  // [T, B, P] post-mask h (rounded to W here)
+  const void* dxw;      // [T, B, G] W, from the walk
+  const void* m;        // [T, B, U] W, masked m
+  const void* dh;       // [T, B, P] W, masked dh_total
+  const float* part;    // [groups][7U], the walk's group partials
+  float* split;         // [splits][P * G + U * P] scratch
+  int* counters;        // [tiles], zero on entry
+  float* dwh;           // [P, G]
+  float* dproj;         // [U, P]
+  float* dbias;         // [G]
+  float* dwi;           // [U]
+  float* dwf;
+  float* dwo;
+  int T, B, U, P, groups, splits, tiles_wh, tiles, rows_wh, rows_proj;
+};
+
+// One kWgTile x kWgTile tile of C[m, n] = Σ_{k0 ≤ k < k1} round_W(A[k, m])
+// · Bm[k, n] (row strides lda, ldb) into out (row stride ldo), on CUDA
+// cores: 16 x 16 threads of 4 x 4 outputs, K staged kWgK rows at a time;
+// each output sums its k in order.
+template <typename W, typename TA>
+__device__ void wgrad_tile(const TA* A, int lda, const W* Bm, int ldb,
+                           int k0, int k1, int M, int N, int m0, int n0,
+                           float* out, int ldo, float (*sA)[kWgTile],
+                           float (*sB)[kWgTile]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+  for (int kb = k0; kb < k1; kb += kWgK) {
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kWgK * kWgTile / kWgThreads; ++q) {
+      const int i = threadIdx.x + q * kWgThreads;
+      const int kk = i / kWgTile, j = i % kWgTile, k = kb + kk;
+      sA[kk][j] = k < k1 && m0 + j < M
+                      ? to_f(to_w<W>(load(A + (size_t)k * lda + m0 + j)))
+                      : 0.0f;
+      sB[kk][j] =
+          k < k1 && n0 + j < N ? load(Bm + (size_t)k * ldb + n0 + j) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kWgK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        a[r] = sA[kk][ty + 16 * r];
+        b[r] = sB[kk][tx + 16 * r];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int m = m0 + ty + 16 * r, n = n0 + tx + 16 * c;
+      if (m < M && n < N) out[(size_t)m * ldo + n] = acc[r][c];
+    }
+}
+
+// Blocks [0, tiles * splits): block (split s, tile) computes its K slice of
+// one output tile of dW_h (tiles [0, tiles_wh)) or dproj; the tile's last
+// block sums the splits in split order. The blocks after them sum dbias and
+// the peepholes over the walk's groups in group order.
+template <typename W>
+__global__ void __launch_bounds__(kWgThreads)
+    lstm_wgrad_kernel(const WgradParams p) {
+  __shared__ float sA[kWgK][kWgTile], sB[kWgK][kWgTile];
+  __shared__ int s_last;
+  const int B = p.B, U = p.U, P = p.P, G = 4 * U;
+  const int tile_blocks = p.tiles * p.splits;
+  if ((int)blockIdx.x >= tile_blocks) {
+    const int e = (blockIdx.x - tile_blocks) * kWgThreads + threadIdx.x;
+    if (e >= 7 * U) return;
+    float v = 0.0f;
+    for (int g = 0; g < p.groups; ++g) v += p.part[(size_t)g * 7 * U + e];
+    if (e < G)
+      p.dbias[e] = v;
+    else if (e < 5 * U)
+      p.dwi[e - G] = v;
+    else if (e < 6 * U)
+      p.dwf[e - 5 * U] = v;
+    else
+      p.dwo[e - 6 * U] = v;
+    return;
+  }
+  const int tile = blockIdx.x % p.tiles, s = blockIdx.x / p.tiles;
+  const bool wh = tile < p.tiles_wh;
+  const size_t n_wh = (size_t)P * G, stride = n_wh + (size_t)U * P;
+  const int M = wh ? P : U, N = wh ? G : P;
+  const int tn = (N + kWgTile - 1) / kWgTile;
+  const int i = wh ? tile : tile - p.tiles_wh;
+  const int m0 = (i / tn) * kWgTile, n0 = (i % tn) * kWgTile;
+  // dW_h pairs h row k (step t - 1) with dxw row B + k (step t)
+  const int K = wh ? (p.T - 1) * B : p.T * B;
+  const int rows = wh ? p.rows_wh : p.rows_proj;
+  const int k0 = min(s * rows, K), k1 = min(k0 + rows, K);
+  float* out = p.split + s * stride + (wh ? 0 : n_wh);
+  if (wh)
+    wgrad_tile<W>(p.h_hist, P, static_cast<const W*>(p.dxw) + (size_t)B * G,
+                  G, k0, k1, M, N, m0, n0, out, N, sA, sB);
+  else
+    wgrad_tile<W>(static_cast<const W*>(p.m), U,
+                  static_cast<const W*>(p.dh), P, k0, k1, M, N, m0, n0, out,
+                  N, sA, sB);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(p.counters + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  float* dst = wh ? p.dwh : p.dproj;
+  const float* src = p.split + (wh ? 0 : n_wh);
+  for (int e = threadIdx.x; e < kWgTile * kWgTile; e += kWgThreads) {
+    const int m = m0 + e / kWgTile, n = n0 + e % kWgTile;
+    if (m >= M || n >= N) continue;
+    const size_t o = (size_t)m * N + n;
+    float v = 0.0f;
+    for (int j = 0; j < p.splits; ++j) v += __ldcg(src + j * stride + o);
+    dst[o] = v;
+  }
+}
+
 // A cooperative launch of `blocks` blocks of kThreads with `smem` bytes of
 // dynamic shared memory; refused (cudaErrorCooperativeLaunchTooLarge) when
 // the blocks cannot all be resident at once.
@@ -1253,7 +1759,7 @@ extern "C" {
 // Each launches its kernel on `stream` and returns cudaGetLastError() (0 on
 // success). They do not synchronise and allocate nothing; the caller's
 // plan fills every size and offset of the parameter block. The first two
-// are cooperative launches; lstm_fwd_rowgroup (below) is a plain one.
+// are cooperative launches; the ones below them are plain ones.
 int lstm_bwd_resident(const void* params, int use_bf16, int device,
                       void* stream) {
   cudaGetLastError();  // clear any stale error of this runtime
@@ -1310,11 +1816,56 @@ int lstm_fwd_rowgroup(const void* params, int use_bf16, int device,
   return (int)cudaGetLastError();
 }
 
+// K3's walk: a plain launch of one block per row group, like K1's.
+int lstm_bwd_rowgroup(const void* params, int use_bf16, int device,
+                      void* stream) {
+  cudaGetLastError();
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const RowBwdParams q = *static_cast<const RowBwdParams*>(params);
+  const void* kernel =
+      use_bf16
+          ? reinterpret_cast<const void*>(
+                lstm_bwd_rowgroup_kernel<__nv_bfloat16>)
+          : reinterpret_cast<const void*>(lstm_bwd_rowgroup_kernel<float>);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             q.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    lstm_bwd_rowgroup_kernel<__nv_bfloat16>
+        <<<q.groups, kRowThreads, q.smem, s>>>(q);
+  else
+    lstm_bwd_rowgroup_kernel<float><<<q.groups, kRowThreads, q.smem, s>>>(q);
+  return (int)cudaGetLastError();
+}
+
+// K3's weight-gradient reduction, launched after the walk on its stream.
+int lstm_wgrad(const void* params, int use_bf16, int device, void* stream) {
+  cudaGetLastError();
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const WgradParams q = *static_cast<const WgradParams*>(params);
+  const int blocks =
+      q.tiles * q.splits + (7 * q.U + kWgThreads - 1) / kWgThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_bf16)
+    lstm_wgrad_kernel<__nv_bfloat16><<<blocks, kWgThreads, 0, s>>>(q);
+  else
+    lstm_wgrad_kernel<float><<<blocks, kWgThreads, 0, s>>>(q);
+  return (int)cudaGetLastError();
+}
+
 // sizeof of the parameter blocks, for the wrappers' layout check.
 int resident_params_sizes(int which) {
-  return which == 0   ? (int)sizeof(BwdParams)
-         : which == 1 ? (int)sizeof(FwdParams)
-                      : (int)sizeof(RowParams);
+  switch (which) {
+    case 0: return (int)sizeof(BwdParams);
+    case 1: return (int)sizeof(FwdParams);
+    case 2: return (int)sizeof(RowParams);
+    case 3: return (int)sizeof(RowBwdParams);
+    default: return (int)sizeof(WgradParams);
+  }
 }
 
 #ifdef RESIDENT_PROFILE

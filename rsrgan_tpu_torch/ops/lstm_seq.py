@@ -17,8 +17,14 @@ launches its kernel for CUDA tensors, or raises:
   one-block-per-SM grid holds a slice of W_h and proj in shared memory
   for the whole walk, as ``resident_plan`` partitions them.
 * ``lstm_bwd_acc`` (K3, ``_bwd_kernel_acc``): the same walk with the
-  weight gradients reduced inside the kernel, ``csrc/lstm_bwd.cu``
-  (``acc=1``), which streams its weights from L2.
+  weight gradients reduced by the kernels. Where the layer's weights fit
+  in one block (the D layer, ``rowgroup_bwd_route``) it runs the
+  row-group walk of ``csrc/resident.cu`` (K1's design backwards:
+  ``rowgroup_bwd_plan``), which also sums the dbias and peephole terms per
+  row group, and then ``lstm_wgrad_kernel``, which reduces dW_h and dproj
+  from its streams in a fixed split-K order (``wgrad_plan``); elsewhere
+  (G width) ``csrc/lstm_bwd.cu`` (``acc=1``), which streams its weights
+  from L2.
 
 ``lstm_layer_bwd`` picks K2 below ``ACC_BWD_MIN_BATCH`` rows and K3 from
 there, as the JAX package does; ``lstm_seq`` is the differentiable layer
@@ -615,21 +621,255 @@ def lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
 lstm_bwd.launches = 0  # kernel launches in this process
 
 
+@dataclasses.dataclass(frozen=True)
+class RowBwdPlan:
+    """The layout of K3's row-group walk (csrc/resident.cu).
+
+    Block i walks rows [row_bounds[i], row_bounds[i+1]) back from T - 1,
+    at most ``group_rows`` (as ``rowgroup_plan``: as few as the card's SMs
+    allow). Unit group q (units 8q .. 8q+7, ``ngrp`` groups, at most four
+    a warp) is owned by warp ``owner(q)``: it computes the group's dm and
+    its lanes run the group's cells. Products: dm = dh_total·projᵀ with
+    K = K1 = P padded over the 8·ngrp packed proj rows, and dh =
+    dgates·W_hᵀ with K = K2 = 4U padded over Np = P padded packed W_h
+    rows; bf16 on mma tiles (A rows padded to 16), the dh product's K
+    split into ``ks`` chunks of ``kchunk`` 16-wide steps, one (8-row tile,
+    chunk) task a warp, whose partials [ks, group_rows, Np] are summed in
+    chunk order; f32 on CUDA cores (A rows the group's), dm by the cell's
+    lane, dh one warp an output over all of K (ks = 1). ld1 and ld2 are
+    the row strides of the packed
+    weights and of their A operands. The next step's acts arrive in
+    shared memory [group_rows, lda] and c(t-2) in a two-slot ring
+    [2, group_rows, ldc] by cp.async, in ``achunk``- and ``cchunk``-byte
+    copies. ``offsets`` is the shared-memory layout, ``n_res_*`` the
+    weight rows held there (the rest is read from the packed weights in
+    global memory)."""
+    B: int
+    U: int
+    P: int
+    group_rows: int
+    groups: int
+    row_bounds: Tuple[int, ...]
+    ngrp: int
+    K1: int
+    ld1: int
+    K2: int
+    ld2: int
+    Np: int
+    ks: int
+    kchunk: int
+    lda: int
+    achunk: int
+    ldc: int
+    cchunk: int
+    n_res_p: int
+    n_res_h: int
+    offsets: Dict[str, int]
+    smem: int
+
+    owner = staticmethod(FwdPlan.owner)
+
+    def weights_resident(self) -> bool:
+        return self.n_res_p == 8 * self.ngrp and self.n_res_h == self.Np
+
+
+ROW_THREADS = 32 * ROW_WARPS
+EPI_PER_THREAD = 2  # the walk's epilogue elements a thread (kEpi)
+
+
+def rowgroup_bwd_plan(B: int, U: int, P: int, dtype: torch.dtype,
+                      sms: int) -> RowBwdPlan:
+    """K3's walk on a card with ``sms`` SMs: ceil(B / group_rows) blocks
+    over balanced row groups. Raises ValueError, with the shape, where no
+    layout fits (more than 512 units, or a group's staging beyond shared
+    memory)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    wb, pad = (2, 8) if bf16 else (4, 4)
+    shape = f"B={B} U={U} P={P} {dtype}"
+    if min(B, U, P, sms) < 1:
+        raise ValueError(f"no row-group K3 plan for {shape} on {sms} SMs")
+    ngrp = -(-U // 8)
+    if ngrp > 4 * ROW_WARPS:
+        raise ValueError(f"no row-group K3 plan for {shape}: a block's "
+                         f"warps own at most {32 * ROW_WARPS} units")
+    K1, K2, Np = (resident.round_up(n, m) for n, m in
+                  ((P, 16), (4 * U, 16), (P, 8)))
+    ld1, ld2 = K1 + pad, K2 + pad
+    lda = 4 * U + 16 // wb  # as K1's ldx: 16 bytes more than a row
+    achunk = 16 if 4 * U * wb % 16 == 0 else 8
+    ldc = resident.round_up(U, 4)
+    cchunk = 16 if U % 4 == 0 else 8 if U % 2 == 0 else 4
+    ksteps = K2 // 16
+    fewest = 1
+    while fewest < ROW_TILE and -(-B // fewest) > sms:
+        fewest *= 2
+    if bf16:  # (8-column tile, K chunk) tasks, one a warp
+        ks = max(1, min(ROW_WARPS // (Np // 8), ksteps))
+        kchunk = -(-ksteps // ks)
+        ks = -(-ksteps // kchunk)
+    else:  # f32: one warp an output over the whole K
+        ks, kchunk = 1, ksteps
+    error = None
+    for group_rows in (r for r in (16, 8, 4, 2, 1) if r <= fewest):
+        if group_rows * P > EPI_PER_THREAD * ROW_THREADS:
+            error = (f"{group_rows} rows of {P} columns exceed the "
+                     f"epilogue's {EPI_PER_THREAD * ROW_THREADS} elements")
+            continue
+        a_rows = ROW_TILE if bf16 else group_rows
+        try:
+            offsets, rows, smem = resident.layout(
+                {"a1": a_rows * ld1 * wb, "a2": a_rows * ld2 * wb,
+                 "dm": group_rows * 8 * ngrp * 4,
+                 "acts": group_rows * lda * wb, "c": 2 * group_rows * ldc * 4,
+                 "dc": group_rows * U * 4, "part": ks * group_rows * Np * 4,
+                 "len": ROW_TILE * 4},
+                [("wp", ld1 * wb, 8 * ngrp), ("wh", ld2 * wb, Np)],
+                multiple={"wp": 8, "wh": 8})
+            break
+        except ValueError as e:
+            error = e
+    else:
+        raise ValueError(f"no row-group K3 plan for {shape}: {error}")
+    groups = -(-B // group_rows)
+    return RowBwdPlan(B, U, P, group_rows, groups,
+                      tuple(resident.balanced_bounds(B, groups)), ngrp, K1,
+                      ld1, K2, ld2, Np, ks, kchunk, lda, achunk, ldc, cchunk,
+                      rows["wp"], rows["wh"], offsets, smem)
+
+
+def pack_bwd_rowgroup_weights(w_h, proj, plan: RowBwdPlan):
+    """K3's walk's weights in the layout its products read: wp_pk
+    [8·ngrp, ld1] (row u = proj[u, :]) and wh_pk [Np, ld2] (row p =
+    W_h[p, :]); zero in every pad."""
+    U, P = plan.U, plan.P
+    wp_pk = proj.new_zeros((8 * plan.ngrp, plan.ld1))
+    wp_pk[:U, :P] = proj
+    wh_pk = w_h.new_zeros((plan.Np, plan.ld2))
+    wh_pk[:P, :4 * U] = w_h
+    return wp_pk, wh_pk
+
+
+def rowgroup_bwd_route(B: int, U: int, P: int, sms: int) -> bool:
+    """Whether K3 at these sizes takes the row-group walk (on a card with
+    ``sms`` SMs): where the layer's bf16 weights all fit in one block, as
+    the D layer's do, in either dtype. Everything else (G width) takes
+    csrc/lstm_bwd.cu."""
+    try:
+        return rowgroup_bwd_plan(B, U, P, torch.bfloat16,
+                                 sms).weights_resident()
+    except ValueError:
+        return False
+
+
+WG_TILE = 64   # the reduction's output tile edge (kWgTile)
+WG_K = 32      # K rows it stages at a time (kWgK)
+WG_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """The grid of K3's weight-gradient reduction (``lstm_wgrad_kernel``).
+
+    dW_h [P, 4U] in ``tiles_wh`` 64 x 64 tiles, then dproj [U, P]: tiles
+    ``tiles`` in all, each reduced over its K = (T-1)·B (dW_h) or T·B
+    (dproj) row-steps in ``splits`` slices of ``rows_wh`` / ``rows_proj``
+    rows, one block a (slice, tile), the slices then summed in order; the
+    ``vec_blocks`` blocks after them sum dbias and the peepholes over the
+    walk's groups."""
+    tiles_wh: int
+    tiles: int
+    splits: int
+    rows_wh: int
+    rows_proj: int
+    vec_blocks: int
+
+
+def wgrad_plan(T: int, B: int, U: int, P: int, sms: int) -> WgradPlan:
+    """K split so that the (slice, tile) blocks give every SM about two."""
+    G, ceil = 4 * U, lambda a, b: -(-a // b)  # noqa: E731
+    tiles_wh = ceil(P, WG_TILE) * ceil(G, WG_TILE)
+    tiles = tiles_wh + ceil(U, WG_TILE) * ceil(P, WG_TILE)
+    splits = max(1, min(ceil(2 * sms, tiles), ceil(T * B, WG_K)))
+
+    def rows(K):
+        return max(WG_K, resident.round_up(ceil(K, splits), WG_K))
+    return WgradPlan(tiles_wh, tiles, splits, rows((T - 1) * B), rows(T * B),
+                     ceil(7 * U, WG_THREADS))
+
+
+def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
+                         wf, wo):
+    """K3 on CUDA tensors: the row-group walk, then the reduction."""
+    _check_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo)
+    T, B, G = acts.shape
+    U, P = proj.shape
+    cdt, dev = w_h.dtype, acts.device
+    bf16, shape = cdt == torch.bfloat16, f"T={T} B={B} U={U} P={P} {cdt}"
+    with torch.cuda.device(dev):
+        sms = resident.sm_count(dev)
+        plan = rowgroup_bwd_plan(B, U, P, cdt, sms)
+        wplan = wgrad_plan(T, B, U, P, sms)
+        wp_pk, wh_pk = pack_bwd_rowgroup_weights(w_h, proj, plan)
+        rows = torch.tensor(plan.row_bounds, dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        dxw = torch.empty((T, B, G), dtype=cdt, device=dev)
+        m_out = torch.empty((T, B, U), dtype=cdt, device=dev)
+        dh_out = torch.empty((T, B, P), dtype=cdt, device=dev)
+        part = torch.empty((plan.groups, 7 * U), **f32)
+        o = plan.offsets
+        params = resident.RowBwdParams(
+            *(t.data_ptr() for t in (acts, lengths, dout, c_hist, wp_pk,
+                                     wh_pk, wi, wf, wo, rows, dxw, m_out,
+                                     dh_out, part)),
+            T, B, U, P, plan.groups, plan.group_rows, plan.ngrp, plan.K1,
+            plan.ld1, plan.K2, plan.ld2, plan.Np, plan.ks, plan.kchunk,
+            plan.lda, plan.achunk, plan.ldc, plan.cchunk, plan.n_res_p,
+            plan.n_res_h, o["a1"], o["a2"], o["dm"], o["acts"], o["c"],
+            o["dc"], o["part"], o["len"], o["wp"], o["wh"], plan.smem)
+        resident.launch("lstm_bwd_rowgroup", params, bf16, dev, shape)
+        grads = (torch.empty((P, G), **f32), torch.empty((U, P), **f32),
+                 torch.empty((G,), **f32), torch.empty((U,), **f32),
+                 torch.empty((U,), **f32), torch.empty((U,), **f32))
+        split = torch.empty((wplan.splits, P * G + U * P), **f32)
+        counters = torch.zeros(wplan.tiles, dtype=torch.int32, device=dev)
+        wparams = resident.WgradParams(
+            *(t.data_ptr() for t in (h_hist, dxw, m_out, dh_out, part, split,
+                                     counters) + grads),
+            T, B, U, P, plan.groups, wplan.splits, wplan.tiles_wh,
+            wplan.tiles, wplan.rows_wh, wplan.rows_proj)
+        resident.launch("lstm_wgrad", wparams, bf16, dev, shape)
+    return (dxw,) + grads
+
+
 def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
                  wo):
     """K3 (arguments and results as ``lstm_bwd_acc_reference``). CPU
-    tensors take the twin; CUDA tensors launch csrc/lstm_bwd.cu or
-    raise."""
+    tensors take the twin; CUDA tensors launch, as ``rowgroup_bwd_route``
+    decides, the row-group walk and the reduction of csrc/resident.cu
+    (counted in ``launches``) or csrc/lstm_bwd.cu (counted in
+    ``streaming_launches``), or raise."""
     if acts.device.type == "cpu":
         return lstm_bwd_acc_reference(acts, lengths, dout, c_hist, h_hist,
                                       w_h, proj, wi, wf, wo)
-    out = _launch_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
-                      wf, wo, acc=True)
-    lstm_bwd_acc.launches += 1
+    if acts.device.type != "cuda":
+        raise ValueError(f"no LSTM backward kernel for device {acts.device}")
+    _, B, _ = acts.shape
+    U, P = proj.shape
+    if rowgroup_bwd_route(B, U, P, resident.sm_count(acts.device)):
+        out = _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h,
+                                   proj, wi, wf, wo)
+        lstm_bwd_acc.launches += 1
+    else:
+        out = _launch_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
+                          wf, wo, acc=True)
+        lstm_bwd_acc.streaming_launches += 1
     return out
 
 
-lstm_bwd_acc.launches = 0  # kernel launches in this process
+lstm_bwd_acc.launches = 0  # row-group walk + reduction launches
+lstm_bwd_acc.streaming_launches = 0  # csrc/lstm_bwd.cu launches
 
 
 def lstm_bwd_grid(B: int, U: int, P: int, acc: bool, bf16: bool,

@@ -4,7 +4,8 @@ arithmetic of their plans.
 
 The plans themselves live beside their wrappers (``resident_plan`` in
 ``ops/lstm_seq.py`` for K2 and in ``ops/wavefront.py`` for K4,
-``rowgroup_plan`` in ``ops/lstm_seq.py`` for K1). A plan fixes the grid,
+``rowgroup_plan``, ``rowgroup_bwd_plan`` and ``wgrad_plan`` in
+``ops/lstm_seq.py`` for K1 and K3). A plan fixes the grid,
 which block owns which rows, units and P columns, the padded sizes of the
 in-block products and the shared-memory layout; the kernel reads all of
 it from the parameter block and computes none of it itself, so the CPU
@@ -105,11 +106,39 @@ class RowParams(ctypes.Structure):
             "off_hf", "off_part", "off_k", "off_wh", "off_wp", "smem")])
 
 
+class RowBwdParams(ctypes.Structure):
+    """``RowBwdParams`` of csrc/resident.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "acts", "lengths", "dout", "c_hist", "wp_pk", "wh_pk", "wi", "wf",
+        "wo", "rows", "dxw", "m_out", "dh_out", "part")]
+        + [(n, ctypes.c_int) for n in (
+            "T", "B", "U", "P", "groups", "grows", "ngrp", "K1", "ld1", "K2",
+            "ld2", "Np", "ks", "kchunk", "lda", "achunk", "ldc", "cchunk",
+            "n_res_p", "n_res_h", "off_a1", "off_a2", "off_dm", "off_acts",
+            "off_c", "off_dc", "off_part", "off_len", "off_wp", "off_wh",
+            "smem")])
+
+
+class WgradParams(ctypes.Structure):
+    """``WgradParams`` of csrc/resident.cu, field for field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "h_hist", "dxw", "m", "dh", "part", "split", "counters", "dwh",
+        "dproj", "dbias", "dwi", "dwf", "dwo")]
+        + [(n, ctypes.c_int) for n in (
+            "T", "B", "U", "P", "groups", "splits", "tiles_wh", "tiles",
+            "rows_wh", "rows_proj")])
+
+
+PARAMS = (BwdParams, FwdParams, RowParams, RowBwdParams, WgradParams)
+LAUNCHERS = ("lstm_bwd_resident", "wavefront_resident", "lstm_fwd_rowgroup",
+             "lstm_bwd_rowgroup", "lstm_wgrad")
+
+
 def library() -> ctypes.CDLL:
     lib = _build.load_library("resident")
     if lib.lstm_bwd_resident.argtypes is None:
-        for fn in (lib.lstm_bwd_resident, lib.wavefront_resident,
-                   lib.lstm_fwd_rowgroup):
+        for name in LAUNCHERS:
+            fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -117,7 +146,7 @@ def library() -> ctypes.CDLL:
         lib.resident_params_sizes.restype = ctypes.c_int
         lib.resident_error_string.argtypes = [ctypes.c_int]
         lib.resident_error_string.restype = ctypes.c_char_p
-        for which, struct in enumerate((BwdParams, FwdParams, RowParams)):
+        for which, struct in enumerate(PARAMS):
             if lib.resident_params_sizes(which) != ctypes.sizeof(struct):
                 raise RuntimeError(f"{struct.__name__} does not match "
                                    "csrc/resident.cu")
@@ -126,9 +155,9 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, params: ctypes.Structure, bf16: bool,
            device: torch.device, shape: str) -> None:
-    """Launch ``name`` (lstm_bwd_resident, wavefront_resident or
-    lstm_fwd_rowgroup) on the current stream of ``device``; raises
-    RuntimeError on a refused launch, with the shape in the message."""
+    """Launch ``name`` (one of ``LAUNCHERS``) on the current stream of
+    ``device``; raises RuntimeError on a refused launch, with the shape in
+    the message."""
     lib = library()
     index = (device.index if device.index is not None
              else torch.cuda.current_device())

@@ -8,8 +8,10 @@ block, each section closed by a block barrier, which slows a step by a few
 per cent) and runs, at chip_smoke.py's shapes in bf16 with every row at
 full length: K4 decode at B = 1, 16 and 64 (T=512), K4 train (B=16,
 T=500), K2 at G width (U=760, P=257) and at D width (U=256, P=40), B=16,
-T=500, and K1 (the row-group kernel) at D width with 16 and 32 rows,
-T=500, in training mode. Prints the card's ``name, power.limit`` and one
+T=500, K1 (the row-group kernel) at D width with 16 and 32 rows,
+T=500, in training mode, and K3 (the row-group walk, timed with its
+reduction) at D width with 32 and 64 rows, T=500. Prints the card's
+``name, power.limit`` and one
 JSON line per case: the kernel's time (CUDA events, 3 launches, without
 the timers' cost removed), microseconds per step, and each section's
 microseconds per step in both blocks. Needs a CUDA device and nvcc; exits
@@ -31,6 +33,7 @@ K2_SECTIONS = ("stage", "dm_mma", "cell", "dh_mma", "barrier_1", "phase_b",
 K4_SECTIONS = ("stage", "gate_mma", "cell", "proj_mma", "barrier_1",
                "phase_b", "barrier_2")
 K1_SECTIONS = ("gate_mma_cell", "streams_proj_mma", "sum_store")
+K3_SECTIONS = ("dm_mma_cell", "streams_dh_mma", "sum_store")
 
 
 def build():
@@ -139,12 +142,22 @@ def main() -> int:
                wo[0])
         measure(lib, f"K2 U={U_} P={P_} B=16 T=500",
                 lambda: ls.lstm_bwd(*bwd), 500, K2_SECTIONS, 0)
-    for B in (16, 32):
+    for B in (16, 32, 64):
         largs = stack_args(rng, 1, 256, 40, B, 500, cdt)
         fwd = (largs[0], largs[1], largs[4][0], largs[5][0], largs[6][0],
                largs[7][0], largs[8][0], largs[9][0])
-        measure(lib, f"K1 U=256 P=40 B={B} T=500",
-                lambda: ls.lstm_fwd(*fwd), 500, K1_SECTIONS, 0)
+        if B <= 32:
+            measure(lib, f"K1 U=256 P=40 B={B} T=500",
+                    lambda: ls.lstm_fwd(*fwd), 500, K1_SECTIONS, 0)
+        if B >= ls.ACC_BWD_MIN_BATCH:
+            _, c_h, h_h, acts = ls.lstm_fwd(*fwd)
+            dout = torch.from_numpy(
+                rng.normal(size=(500, B, 40)).astype(np.float32)).cuda()
+            bwd = (acts, fwd[1], dout, c_h, h_h, fwd[2], fwd[3], *fwd[5:])
+            # the time includes the reduction after the walk; the
+            # sections are the walk's
+            measure(lib, f"K3 U=256 P=40 B={B} T=500",
+                    lambda: ls.lstm_bwd_acc(*bwd), 500, K3_SECTIONS, 0)
     return 0
 
 

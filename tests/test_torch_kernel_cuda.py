@@ -1,4 +1,4 @@
-"""The CUDA wavefront kernel against its plain PyTorch twin, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc (marker ``cuda``) and skips
 elsewhere. The file imports torch and the port only, so it runs where
@@ -312,3 +312,63 @@ def test_rowgroup_lstm_fwd_g_width(cuda_device, cdt):
     got = ls.lstm_fwd(*args)
     assert_close(got, ls.lstm_fwd_reference(*args), cdt)
     assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_fwd(*args)))
+
+
+# ---------------------------------------------------------------------------
+# K3: the row-group walk and its reduction (csrc/resident.cu), and the
+# streaming kernel (csrc/lstm_bwd.cu) at G's width
+# ---------------------------------------------------------------------------
+
+def bwd_acc_args(device, cdt, rows, U_, P_, seed):
+    """K3's inputs on its forward twin's streams, Glorot-scaled weights."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    rng = np.random.default_rng(seed)
+    scale = min(0.5, (6 / (4 * U_ + P_)) ** 0.5)
+
+    def u(*shape):
+        return torch.tensor(rng.uniform(-scale, scale, shape),
+                            dtype=torch.float32, device=device)
+
+    lens = torch.tensor((LENS * rows)[:rows], dtype=torch.int32,
+                        device=device)
+    xw = torch.tensor(rng.normal(0, 0.5, (T, rows, 4 * U_)),
+                      dtype=torch.float32, device=device).to(cdt)
+    w_h, proj = u(P_, 4 * U_).to(cdt), u(U_, P_).to(cdt)
+    bias, wi, wf, wo = u(4 * U_), u(U_), u(U_), u(U_)
+    _, c, h, acts = ls.lstm_fwd_reference(xw, lens, w_h, proj, bias, wi, wf,
+                                          wo)
+    dout = torch.tensor(rng.normal(size=(T, rows, P_)), dtype=torch.float32,
+                        device=device)
+    return acts, lens, dout, c, h, w_h, proj, wi, wf, wo
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 17, 33, 64])
+@pytest.mark.parametrize("U_,P_", [(13, 9), (200, 40)])
+def test_rowgroup_lstm_bwd_acc(cuda_device, cdt, rows, U_, P_):
+    """K3 against its twin, all seven outputs, at 1-64 rows, odd U and P
+    and a zero-length row: each call launches the row-group walk and its
+    reduction (one count), and two launches give the same bits."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    args = bwd_acc_args(cuda_device, cdt, rows, U_, P_, rows + U_)
+    before = (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.streaming_launches)
+    got = ls.lstm_bwd_acc(*args)
+    assert (ls.lstm_bwd_acc.launches,
+            ls.lstm_bwd_acc.streaming_launches) == (before[0] + 1, before[1])
+    assert_close(got, ls.lstm_bwd_acc_reference(*args), cdt)
+    again = ls.lstm_bwd_acc(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_lstm_bwd_acc_g_width_streams(cuda_device, cdt):
+    """At G's width (U=760, P=257) K3 takes csrc/lstm_bwd.cu."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    args = bwd_acc_args(cuda_device, cdt, 32, 760, 257, 9)
+    before = (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.streaming_launches)
+    got = ls.lstm_bwd_acc(*args)
+    assert (ls.lstm_bwd_acc.launches,
+            ls.lstm_bwd_acc.streaming_launches) == (before[0], before[1] + 1)
+    assert_close(got, ls.lstm_bwd_acc_reference(*args), cdt)
