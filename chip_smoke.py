@@ -21,15 +21,20 @@ JSON line each; any failure ends the run non-zero:
    it: K4 in train mode (save_acts=True) at G's width, B=16, T=500; K1
    (the D forward, the row-group kernel) at 16 and 32 rows; K2 at G's
    width (16 rows) and D's (16 rows); K3 at D's width (the row-group walk
-   and its reduction) at 32 and 64 rows, and at G's width, B=32
-   (csrc/lstm_bwd.cu); the redesigned kernels (K4, K2, K1, K3) also for
+   and its reduction) at 32 and 64 rows, and at G's width at B=32, 64,
+   128 and 256 (K2's resident walk in acc mode and the reduction, the
+   walk and the reduction also timed apart; csrc/lstm_bwd.cu for f32 past
+   48 rows, where it is faster, the resident walk timed beside where its
+   plan fits), each on the route bwd_acc_route names, checked by its
+   launch count; the redesigned kernels (K4, K2, K1, K3) also for
    bit-equal relaunches and beside the streaming kernels they replaced.
    Then all four at small odd shapes (U=13, P=9 and U=200, P=40; B=1, 3,
    33 and 64; a zero-length row), K1 also without its saved streams and
    at G's width.
-4. grad — gradients of the full-width G stack and of D (16 and 32 rows)
-   through the kernels' autograd Functions against the eager cell under
-   autograd, f32.
+4. grad — gradients of the full-width G stack (B=16, and B=32 with K3's
+   resident route in every layer) and of D (16 and 32 rows) through the
+   kernels' autograd Functions against the eager cell under autograd,
+   f32.
 5. train — a seeded store of 64 train and 16 cv utterances (150-600
    frames, 257 -> 40) and a CMVN npz; one epoch of
    ``rsrgan_tpu_torch.cli.train.main(["--trainer=gan_rnn",
@@ -39,7 +44,10 @@ JSON line each; any failure ends the run non-zero:
    train step on one batch through the kernels against --lstm_impl=scan;
    and one bf16 train step at T=600 under torch.profiler (device time by
    kernel, device busy share; the D step's backward must show on K3's
-   row-group kernels and not on csrc/lstm_bwd.cu).
+   row-group kernels and not on csrc/lstm_bwd.cu), then one at B=32, the
+   CLI's default (the 32 longest utterances): its 8 G-layer backwards on
+   K3's resident route (counts set to 0 just before the step), none on
+   csrc/lstm_bwd.cu.
 6. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
@@ -63,6 +71,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 RESIDENT = "rsrgan_tpu_torch/csrc/resident.cu"
 REPLACES = "rsrgan_tpu/ops/pallas_wavefront.py:48"
+# the two bf16 instantiations of the resident walk, as the profiler names
+# them: K2, and K3's walk in acc mode
+K2_BF16_KERNEL = "lstm_bwd_resident_kernel<__nv_bfloat16, false>"
+K3_WALK_BF16_KERNEL = "lstm_bwd_resident_kernel<__nv_bfloat16, true>"
 
 # res_lstm_l at full width; B is bench.py's batch, T a 128-padded length
 L, U, P, OUT = 4, 760, 257, 40
@@ -100,6 +112,9 @@ DU, DP = 256, 40
 # or masking fault gives O(1).
 GRAD_TOL = 1e-3
 K3_GRADS = ("dxw", "dwh", "dproj", "dbias", "dwi", "dwf", "dwo")
+# The batches at which K3 runs at G's width: the CLI's default 32, 64, 128
+# and bench.py's 256 (the recipe's 8 takes K2)
+K3_G_BATCHES = (32, 64, 128, 256)
 # Published peaks of one H100 SXM (dense), for the bounds.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -442,15 +457,14 @@ def streaming_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo):
 
 
 def phase_kernels_train(dtype_name: str) -> list:
-    """K4 train mode, K1, K2 (G and D) and K3 (D, and G at B=32) at the
-    train step's shapes."""
+    """K4 train mode, K1, K2 (G and D) and K3 (D, and G at B=32, 64, 128
+    and 256) at the train step's shapes."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
     from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd_reference,
                                                 lstm_wavefront_fwd_train)
     cdt = getattr(torch, dtype_name)
-    bf16 = cdt == torch.bfloat16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     results = []
     streams4 = ("taps", "c_hist", "h_hist", "acts")
@@ -484,26 +498,10 @@ def phase_kernels_train(dtype_name: str) -> list:
         **resident_grid(ls.resident_plan(B, U, P, cdt, sms)),
         **bwd_bound(U, P, B, TT, TRAIN_LENGTHS, dtype_name, acc=False)))
 
-    # K3 at G's width (B=32, the CLI's default --batch_size, where every G
-    # layer's backward takes it): csrc/lstm_bwd.cu, on one layer's
-    # training-forward streams; two launches, one twin run
-    g_lens = TRAIN_LENGTHS * 2
-    args32 = kernel_inputs(10, 1, U, P, 2 * B, TT, g_lens, cdt, "cuda")
-    _, c_s, h_s, acts = lstm_wavefront_fwd_train(*args32, residual=False)
-    dout = torch.from_numpy(
-        rng.normal(size=(TT, 2 * B, P)).astype(np.float32)).cuda()
-    _, lens32, _, _, wh, proj, _, wi, wf, wo = args32
-    g3_args = (acts[0], lens32, dout, c_s[0], h_s[0], wh[0], proj[0], wi[0],
-               wf[0], wo[0])
-    before = ls.lstm_bwd_acc.streaming_launches
-    results.append(timed(
-        "lstm_bwd_acc", dtype_name, lambda: ls.lstm_bwd_acc(*g3_args),
-        lambda: ls.lstm_bwd_acc_reference(*g3_args), K3_GRADS, reps=2,
-        # the route: every call (1 + 2 timed) launched csrc/lstm_bwd.cu
-        check=lambda: ls.lstm_bwd_acc.streaming_launches == before + 3,
-        net="G", U=U, P=P, B=2 * B, T=TT, design="streaming",
-        grid=ls.lstm_bwd_grid(2 * B, U, P, True, bf16),
-        **bwd_bound(U, P, 2 * B, TT, g_lens, dtype_name, acc=True)))
+    # K3 at G's width, at the batches where every G layer's backward takes
+    # it: B=32 (the CLI's default --batch_size), 64 and 256 (bench.py)
+    for rows in K3_G_BATCHES:
+        results.append(k3_g_width(rows, dtype_name, sms))
 
     # D: K1 at 16 and 32 rows, K2 at 16, K3 at 32 and 64 (the D step at
     # --batch_size 16 and 32)
@@ -555,6 +553,79 @@ def phase_kernels_train(dtype_name: str) -> list:
                 **rowgroup_grid(ls.rowgroup_bwd_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=True)))
     return results
+
+
+def wgrad_bound(U_, P_, B_, T_, lengths, dtype_name):
+    """K3's reduction: dW_h = Σ h(t-1)ᵀ·dxw(t) and dproj = Σ mᵀ·dh over
+    the true row-steps; reads h_hist (f32) and the walk's dxw, m and dh
+    there, writes dW_h and dproj."""
+    G_, wb = 4 * U_, 2 if dtype_name == "bfloat16" else 4
+    n = true_steps(lengths, T_)
+    return bound(n * (2 * P_ * G_ + 2 * U_ * P_),
+                 n * (P_ * 4 + (G_ + U_ + P_) * wb) + (P_ * G_ + U_ * P_) * 4,
+                 dtype_name)
+
+
+def k3_g_width(rows: int, dtype_name: str, sms: int) -> dict:
+    """K3 at G's width, B=rows, T=500, on one layer's forward streams
+    (from the twin): all seven outputs against the twin, bit-equal
+    relaunches, the route ``bwd_acc_route`` names checked by its count,
+    csrc/lstm_bwd.cu timed beside it; on the resident route also the
+    walk and the reduction timed apart; on the streaming route the
+    resident one where its plan fits (f32 past RESIDENT_F32_MAX_ROWS)."""
+    import torch
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    cdt = getattr(torch, dtype_name)
+    rng = np.random.default_rng(10 + rows)
+    lens = (TRAIN_LENGTHS * (rows // B))[:rows]
+    prm = layer_params(rng, P, U, P, cdt, "cuda")
+    x = torch.from_numpy(
+        rng.normal(size=(TT, rows, P)).astype(np.float32)).cuda()
+    xw = (x.to(cdt).float() @ prm["w_x"].to(cdt).float()).to(cdt)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    weights = (prm["w_h"], prm["proj"], prm["wi"], prm["wf"], prm["wo"])
+    _, c_h, h_h, acts = ls.lstm_fwd_reference(
+        xw, lens_t, prm["w_h"], prm["proj"], prm["bias"], prm["wi"],
+        prm["wf"], prm["wo"])
+    dout = torch.from_numpy(
+        rng.normal(size=(TT, rows, P)).astype(np.float32)).cuda()
+    args = (acts, lens_t, dout, c_h, h_h, *weights)
+    route = ls.bwd_acc_route(rows, U, P, cdt, sms)
+    count = {"resident": "resident_launches",
+             "streaming": "streaming_launches"}[route]
+    extra = {"route": route, "net": "G", "U": U, "P": P, "B": rows, "T": TT}
+    if route == "resident":
+        walk = lambda: ls._launch_bwd_resident(  # noqa: E731
+            acts, lens_t, dout, c_h, *weights, acc=True)
+        dxw, m, dh = walk()[:3]
+        extra.update(
+            walk_ms=cuda_time_ms(walk, 2),
+            reduction_ms=cuda_time_ms(
+                lambda: ls._launch_wgrad(h_h, dxw, m, dh), 5),
+            walk_bound_ms=bwd_bound(U, P, rows, TT, lens, dtype_name,
+                                    acc=False)["bound_ms"],
+            reduction_bound_ms=wgrad_bound(U, P, rows, TT, lens,
+                                           dtype_name)["bound_ms"],
+            reduction_splits=ls.wgrad_plan(TT, rows, U, P, sms).splits,
+            **resident_grid(ls.resident_plan(rows, U, P, cdt, sms,
+                                             acc=True)))
+    else:
+        extra.update(design="streaming", grid=ls.lstm_bwd_grid(
+            rows, U, P, True, cdt == torch.bfloat16))
+        try:  # f32 past RESIDENT_F32_MAX_ROWS: the slower route, timed
+            ls.resident_plan(rows, U, P, cdt, sms, acc=True)
+            extra["resident_ms"] = cuda_time_ms(
+                lambda: ls._launch_bwd_resident_acc(*args), 2)
+        except ValueError:
+            pass
+    before = getattr(ls.lstm_bwd_acc, count)
+    return timed(
+        "lstm_bwd_acc", dtype_name, lambda: ls.lstm_bwd_acc(*args),
+        lambda: ls.lstm_bwd_acc_reference(*args), K3_GRADS, reps=2,
+        streaming=lambda: ls._launch_bwd(*args, acc=True), steps=TT,
+        # the route: every call (1 + 2 timed + 2 relaunches) took it
+        check=lambda: getattr(ls.lstm_bwd_acc, count) == before + 5,
+        **extra, **bwd_bound(U, P, rows, TT, lens, dtype_name, acc=True))
 
 
 def phase_kernels_train_small() -> dict:
@@ -653,21 +724,27 @@ def rel_errs(got: dict, want: dict) -> dict:
 
 
 def phase_grad() -> dict:
-    """f32 gradients at full width: the G stack (wavefront train forward +
-    K2 per layer) and D at 16 rows (K1 + K2) and 32 rows (K1 + K3), each
-    against the eager cell under autograd."""
+    """f32 gradients at full width: the G stack at B=16 (wavefront train
+    forward + K2 per layer) and B=32 (+ K3 per layer, on its resident
+    route) and D at 16 rows (K1 + K2) and 32 rows (K1 + K3), each against
+    the eager cell under autograd."""
     import torch
     from rsrgan_tpu_torch.models import get_discriminator
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops.lstm import lstm_cell_forward
     from rsrgan_tpu_torch.ops.wavefront_stack import lstm_stack_wavefront
     rng = np.random.default_rng(11)
     tree = generator_tree(12)
-    lens = torch.tensor(TRAIN_LENGTHS, dtype=torch.int32, device="cuda")
-    x = rng.normal(size=(B, TT, P)).astype(np.float32)
-    w = torch.from_numpy(
-        rng.normal(size=(B, TT, P)).astype(np.float32)).cuda()
 
-    def g_grads(kernel: bool) -> dict:
+    def g_inputs(rng, rows):
+        lens = torch.tensor((TRAIN_LENGTHS * (rows // B))[:rows],
+                            dtype=torch.int32, device="cuda")
+        x = rng.normal(size=(rows, TT, P)).astype(np.float32)
+        w = torch.from_numpy(
+            rng.normal(size=(rows, TT, P)).astype(np.float32)).cuda()
+        return x, w, lens
+
+    def g_grads(kernel: bool, x, w, lens) -> dict:
         params = [{k: torch.from_numpy(v).cuda().requires_grad_(True)
                    for k, v in tree[f"lstm_cell_{i + 1}"].items()}
                   for i in range(L)]
@@ -686,7 +763,14 @@ def phase_grad() -> dict:
                     for i, p in enumerate(params) for k, v in p.items()})
         return out
 
-    g_err = rel_errs(g_grads(True), g_grads(False))
+    g16 = g_inputs(rng, B)
+    g_err = rel_errs(g_grads(True, *g16), g_grads(False, *g16))
+    # B=32: every layer's backward takes K3's resident route (a count each)
+    g32 = g_inputs(np.random.default_rng(14), 2 * B)
+    before = ls.lstm_bwd_acc.resident_launches
+    g32_kernel = g_grads(True, *g32)
+    g32_launches = ls.lstm_bwd_acc.resident_launches - before
+    g32_err = rel_errs(g32_kernel, g_grads(False, *g32))
     d_err = {}
     for rows in (B, 2 * B):
         torch.manual_seed(rows)
@@ -706,12 +790,15 @@ def phase_grad() -> dict:
             grads[impl] = {"x": xt.grad, **{n: p.grad for n, p in
                                             net.named_parameters()}}
         d_err[rows] = rel_errs(grads["wavefront"], grads["scan"])
-    worst = max([*g_err.values()] + [e for d in d_err.values()
-                                     for e in d.values()])
+    worst = max([*g_err.values(), *g32_err.values()]
+                + [e for d in d_err.values() for e in d.values()])
     out = {"phase": "grad", "dtype": "float32", "G_rel_err_max":
-           max(g_err.values()), "D16_rel_err_max": max(d_err[B].values()),
+           max(g_err.values()), "G32_rel_err_max": max(g32_err.values()),
+           "G32_k3_resident_launches": g32_launches,
+           "D16_rel_err_max": max(d_err[B].values()),
            "D32_rel_err_max": max(d_err[2 * B].values()),
-           "G_rel_err": g_err, "tol": GRAD_TOL, "ok": worst <= GRAD_TOL}
+           "G_rel_err": g_err, "G32_rel_err": g32_err, "tol": GRAD_TOL,
+           "ok": worst <= GRAD_TOL and g32_launches == L}
     emit(out)
     return out
 
@@ -785,10 +872,28 @@ def train_step_parity(tr_list: str) -> dict:
                    and len(errs) == 3 and post["d"] <= GRAD_TOL)}
 
 
-def profile_train_step(tr_list: str) -> dict:
+def longest_utterances(store, rows: int) -> tuple:
+    """(inputs, labels, lengths) of the store's ``rows`` longest
+    utterances, padded as a SequenceBatcher pads their length bucket."""
+    from rsrgan_tpu_torch.data.dataset import bucket_id, padded_length
+    idx = np.argsort(-np.asarray(store.lengths), kind="stable")[:rows]
+    lengths = np.asarray([store.lengths[i] for i in idx], dtype=np.int32)
+    t_pad = padded_length(bucket_id(int(lengths.max())), int(lengths.max()))
+    inputs = np.zeros((rows, t_pad, store.input_dim), np.float32)
+    labels = np.zeros((rows, t_pad, store.output_dim), np.float32)
+    for row, i in enumerate(idx):
+        inputs[row, :lengths[row]] = store.inputs(i)
+        labels[row, :lengths[row]] = store.labels(i)
+    return inputs, labels, lengths
+
+
+def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
     """Device time by kernel of one bf16 train step on the kernels (a
     warm-up step first), from torch.profiler; wall time from the host
-    clock around the step and a synchronize."""
+    clock around the step and a synchronize; the launches of the profiled
+    step (``counters``, as phase_train's, set to 0 just before it). B=16:
+    the T=600 bucket's batch; B=32 (the CLI's default): the 32 longest
+    utterances, padded to the longest's bucket."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -797,10 +902,13 @@ def profile_train_step(tr_list: str) -> dict:
     from rsrgan_tpu_torch.models import get_discriminator, get_generator
     from rsrgan_tpu_torch.training import GanTrainer
     store = UtteranceStore(read_list_file(tr_list))
-    batch = max(SequenceBatcher(store, B, seed=1),
-                key=lambda b: b.inputs.shape[1])   # the T=600 bucket
-    args = tuple(torch.from_numpy(a).cuda() for a in
-                 (batch.inputs, batch.labels, batch.lengths))
+    if rows == B:
+        batch = max(SequenceBatcher(store, B, seed=1),
+                    key=lambda b: b.inputs.shape[1])   # the T=600 bucket
+        arrays = (batch.inputs, batch.labels, batch.lengths)
+    else:
+        arrays = longest_utterances(store, rows)
+    args = tuple(torch.from_numpy(a).cuda() for a in arrays)
     gen = torch.Generator().manual_seed(31)
     trainer = GanTrainer(
         get_generator("res_lstm_l", input_dim=P, output_dim=OUT,
@@ -814,6 +922,8 @@ def profile_train_step(tr_list: str) -> dict:
     noise = torch.Generator(device="cuda").manual_seed(32)
     trainer.train_step(state, *args, hp, noise)
     torch.cuda.synchronize()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -821,6 +931,8 @@ def profile_train_step(tr_list: str) -> dict:
         float(m["g_loss"])
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
     # kernel rows only: an op row (an autograd node, aten::mm) also
     # carries the device time of the kernels launched inside it
     by_kernel = {}
@@ -831,17 +943,21 @@ def profile_train_step(tr_list: str) -> dict:
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            by_kernel[e.key[:80]] = us / 1e3
+            key = e.key[:100]
+            by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
     device_ms = sum(by_kernel.values())
+    # lstm_bwd_resident_kernel<W, acc>: K2 (acc=false), and K3's walk in
+    # acc mode; the profiled steps run bf16
     ours = {name: sum(v for k, v in by_kernel.items() if name in k)
             for name in ("wavefront_resident_kernel",
-                         "lstm_bwd_resident_kernel",
+                         K2_BF16_KERNEL, K3_WALK_BF16_KERNEL,
                          "lstm_fwd_rowgroup_kernel",
                          "lstm_bwd_rowgroup_kernel", "lstm_wgrad_kernel",
                          "lstm_bwd_kernel")}
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return {"T": int(batch.inputs.shape[1]), "B": B,
-            "true_frames": int(batch.lengths.sum()), "wall_ms": wall_ms,
+    return {"T": int(args[0].shape[1]), "B": rows,
+            "true_frames": int(args[2].sum()), "launches": launches,
+            "wall_ms": wall_ms,
             "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
             "hand_kernels_ms": ours,
@@ -863,13 +979,15 @@ def phase_train(work: str) -> dict:
     os.makedirs(data_dir)
     tr_list, cv_list = write_corpus(data_dir, rng)
     save_dir = os.path.join(work, "train_exp")
-    # name -> (wrapper, its count); lstm_bwd_acc counts the row-group walk
-    # and csrc/lstm_bwd.cu apart
+    # name -> (wrapper, its count); lstm_bwd_acc counts its three routes
+    # apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu
     counters = {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train,
                                         "launches"),
                 "lstm_fwd": (ls.lstm_fwd, "launches"),
                 "lstm_bwd": (ls.lstm_bwd, "launches"),
                 "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
+                "lstm_bwd_acc_resident": (ls.lstm_bwd_acc,
+                                          "resident_launches"),
                 "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc,
                                            "streaming_launches"),
                 "wavefront_fwd": (wf.lstm_wavefront_fwd, "launches")}
@@ -910,7 +1028,7 @@ def phase_train(work: str) -> dict:
                  and all(m.shape[1] == OUT and np.isfinite(m).all()
                          for m in ark.values()))
     parity = train_step_parity(tr_list)
-    profile = profile_train_step(tr_list)
+    profile = profile_train_step(tr_list, B, counters)
     main_path = ("wavefront_fwd_train", "lstm_fwd", "lstm_bwd",
                  "lstm_bwd_acc")
     # the profiled step's D-step backward on K3's row-group kernels, and
@@ -919,6 +1037,14 @@ def phase_train(work: str) -> dict:
     k3_rowgroup = (hand["lstm_bwd_rowgroup_kernel"] > 0
                    and hand["lstm_wgrad_kernel"] > 0
                    and hand["lstm_bwd_kernel"] == 0)
+    # B=32, the CLI's default: every G layer's backward (4 layers x 2 G
+    # steps) on K3's resident route, none on csrc/lstm_bwd.cu
+    profile32 = profile_train_step(tr_list, 2 * B, counters)
+    hand32, runs32 = profile32["hand_kernels_ms"], profile32["launches"]
+    k3_resident = (runs32["lstm_bwd_acc_resident"] == 2 * L
+                   and runs32["lstm_bwd_acc_streaming"] == 0
+                   and hand32[K3_WALK_BF16_KERNEL] > 0
+                   and hand32["lstm_bwd_kernel"] == 0)
     out = {"phase": "train", "seconds": secs, "launches": launches,
            "steps": row["train_steps"], "train_secs": row["train_secs"],
            "train_frames_per_s": row["train_frames_per_sec"],
@@ -926,8 +1052,11 @@ def phase_train(work: str) -> dict:
            "losses": losses, "checkpoint": os.path.basename(ckpt or ""),
            "decode_ok": decode_ok, "parity_f32": parity,
            "profile_bf16_step": profile, "k3_rowgroup_in_step": k3_rowgroup,
+           "profile_bf16_step_b32": profile32,
+           "k3_resident_in_b32_step": k3_resident,
            "ok": (all(launches[k] > 0 for k in main_path)
                   and launches["lstm_bwd_acc_streaming"] == 0 and k3_rowgroup
+                  and k3_resident
                   and all(np.isfinite(v) for v in losses.values())
                   and ckpt is not None and decode_ok and parity["ok"])}
     emit(out)
@@ -1025,11 +1154,15 @@ def card_name_and_limit() -> str:
 PHASES = ("build", "kernel", "kernels_train", "grad", "train", "decode")
 
 
-def kernel_entry(name, source, replaces, launches, result, bound_keys):
+def kernel_entry(name, source, replaces, launches, launches_per, result,
+                 bound_keys):
     extra = {k: result[k] for k in ("grid", "design", "streaming_ms",
-                                    "us_per_step") if k in result}
+                                    "us_per_step", "walk_ms", "reduction_ms",
+                                    "walk_bound_ms", "reduction_bound_ms")
+             if k in result}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
+            "launches_per": launches_per,
             "max_abs_err": (max(result["max_abs_err"].values())
                             if isinstance(result["max_abs_err"], dict)
                             else result["max_abs_err"]),
@@ -1044,15 +1177,19 @@ def kernel_entry(name, source, replaces, launches, result, bound_keys):
 
 def kernels_line(results: dict) -> dict:
     """One entry per kernel: launches from the main-path runs (train and
-    decode phases), error and times from the bf16 kernel phases at the
-    main path's shapes, bounds from those phases' inputs."""
+    decode phases; ``launches_per`` names the run), error and times from
+    the bf16 kernel phases at the main path's shapes, bounds from those
+    phases' inputs."""
     dec = results["kernel"]["bfloat16"]
     entries = [kernel_entry(
         "wavefront_fwd (decode, save_acts=False)", RESIDENT, REPLACES,
-        results["decode"]["launches"], dec,
+        results["decode"]["launches"], "decode run (32 utterances)", dec,
         wavefront_bound(L, U, P, B, T, LENGTHS, "bfloat16", train=False))]
     if "kernels_train" in results:
-        launches = results["train"]["launches"]
+        epoch = results["train"]["launches"]
+        # K3 at G width runs at the CLI's default batch, not at B=16: its
+        # launches are the profiled B=32 step's
+        step32 = results["train"]["profile_bf16_step_b32"]["launches"]
         by_name = {}
         for r in results["kernels_train"]["bfloat16"]:
             by_name.setdefault((r["kernel"], r.get("net"), r.get("B")), r)
@@ -1073,10 +1210,21 @@ def kernels_line(results: dict) -> dict:
                  "lstm_bwd_acc (K3, D step, 32 rows: the row-group walk "
                  "lstm_bwd_rowgroup_kernel, then its reduction "
                  "lstm_wgrad_kernel)", RESIDENT,
+                 "rsrgan_tpu/ops/pallas_lstm.py:364"),
+                (("lstm_bwd_acc", "G", 2 * B),
+                 "lstm_bwd_acc (K3, G layer, B=32: the resident walk "
+                 "lstm_bwd_resident_kernel in acc mode, then its reduction "
+                 "lstm_wgrad_kernel)", RESIDENT,
                  "rsrgan_tpu/ops/pallas_lstm.py:364")):
             r = by_name[key]
-            entries.append(kernel_entry(label, source, replaces,
-                                        launches[key[0]], r, r))
+            if r.get("route") == "resident":
+                runs = (step32["lstm_bwd_acc_resident"],
+                        "one profiled train step at B=32")
+            else:
+                runs = (epoch[key[0]],
+                        "train epoch at B=16 (4 iterations, cv pass)")
+            entries.append(kernel_entry(label, source, replaces, *runs, r,
+                                        r))
     return {"kernels": entries}
 
 

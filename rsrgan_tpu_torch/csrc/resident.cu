@@ -9,7 +9,8 @@
 //   `_bwd_kernel` (launched by `_bwd_pallas`, K2): the reverse walk over the
 //   forward's saved gate activations; per step it emits dgates (dxw), the
 //   masked m and the masked dh_total (the weight gradients are reduced
-//   outside, lstm_weight_grads).
+//   outside, lstm_weight_grads). In its acc mode it is K3's walk at G
+//   width (`_bwd_kernel_acc`, see K3's section).
 // * wavefront_resident_kernel replaces rsrgan_tpu/ops/pallas_wavefront.py
 //   `_wavefront_kernel` (launched by `lstm_wavefront_fwd`, K4) in both of
 //   its modes: all L layers in one program, layer k running k steps behind
@@ -68,6 +69,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -410,12 +413,22 @@ struct BwdParams {
   void* dxw;            // [T, B, G] W
   void* m_out;          // [T, B, U] W, masked m
   void* dh_out;         // [T, B, P] W, masked dh_total
+  float* dbias;         // [G] (acc only): sum of the f32 dgates
+  float* dwi;           // [U] (acc only): peephole gradients
+  float* dwf;
+  float* dwo;
   int T, B, U, P, blocks, NU, NUn, K1, ld1, Np, K2, ld2, Mp;
   int n_res_proj, n_res_wh, tpi;
+  int acc;  // K3's walk: also sum dbias and the peephole gradients
   int off_a, off_dm, off_dg, off_dc, off_k, off_proj, off_wh, smem;
 };
 
-template <typename W>
+// acc mode: the (row, unit) cells a thread owns, whose sums it keeps in
+// registers for the whole walk (the plan keeps B * NU within kAccCells *
+// kThreads)
+constexpr int kAccCells = 8;
+
+template <typename W, bool kAcc>
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_bwd_resident_kernel(const BwdParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -452,6 +465,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     s_k[2 * NU + i] = p.wo[u0 + i];
   }
   for (int i = threadIdx.x; i < B; i += kThreads) s_len[i] = p.lengths[i];
+  // acc: cell threadIdx.x + e * kThreads's dbias i, j, f, o and dw_i, dw_f,
+  // dw_o terms, summed over the walk's steps in step order
+  float sums[kAcc ? kAccCells : 1][7] = {};
 
   SECTIONS_START;
   for (int t = p.T - 1; t >= 0; --t) {
@@ -501,8 +517,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                p.K1, [&](int m, int n, float v) { s_dm[m * NU + n] = v; });
     __syncthreads();
     SECTION_END(1);
-    // the peephole cell's reverse math; the dc carry stays in the block
-    for (int i = threadIdx.x; i < B * nu; i += kThreads) {
+    // the peephole cell's reverse math; the dc carry stays in the block.
+    // acc: cell i adds its dbias and peephole terms to cell_sums[7]
+    auto cell = [&](int i, float* cell_sums) {
       const int b = i / nu, ul = i % nu, u = u0 + ul;
       const bool live = t < s_len[b];
       const float dm = live ? s_dm[b * NU + ul] : 0.0f;
@@ -533,6 +550,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       store(static_cast<W*>(p.m_out) + row * U + u, live ? so * tc : 0.0f);
       s_dc[b * NU + ul] = live ? dc_prev : dc_old;
+      if constexpr (kAcc) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) cell_sums[g] += dgate[g];
+        if (live) {
+          cell_sums[4] += d_i * c_prev;
+          cell_sums[5] += d_f * c_prev;
+          cell_sums[6] += d_o * c_new;
+        }
+      }
+    };
+    if constexpr (kAcc) {
+#pragma unroll
+      for (int e = 0; e < kAccCells; ++e) {  // unrolled: sums in registers
+        const int i = threadIdx.x + e * kThreads;
+        if (i >= B * nu) break;
+        cell(i, sums[e]);
+      }
+    } else {
+      for (int i = threadIdx.x; i < B * nu; i += kThreads) cell(i, nullptr);
     }
     __syncthreads();
     SECTION_END(2);
@@ -557,6 +593,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     SECTION_END(5);
     grid.sync();
     SECTION_END(6);
+  }
+  if constexpr (kAcc) {
+    // each unit's seven sums over its rows in row order, through shared
+    // memory [7][B][NU] laid over the staging of A (the plan sizes it);
+    // no other block owns these units, so they are written once, here
+    float* s_sum = reinterpret_cast<float*>(smem + p.off_a);
+#pragma unroll
+    for (int e = 0; e < kAccCells; ++e) {
+      const int i = threadIdx.x + e * kThreads;
+      if (i >= B * nu) break;
+      const int b = i / nu, ul = i % nu;
+#pragma unroll
+      for (int k = 0; k < 7; ++k)
+        s_sum[((size_t)k * B + b) * NU + ul] = sums[e][k];
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < 7 * nu; j += kThreads) {
+      const int k = j / nu, ul = j % nu, u = u0 + ul;
+      const float* src = s_sum + (size_t)k * B * NU + ul;
+      float v = 0.0f;
+      for (int b = 0; b < B; ++b) v += src[(size_t)b * NU];
+      if (k < 4)
+        p.dbias[k * U + u] = v;
+      else
+        (k == 4 ? p.dwi : k == 5 ? p.dwf : p.dwo)[u] = v;
+    }
   }
 }
 
@@ -1282,11 +1344,21 @@ __global__ void __launch_bounds__(kRowThreads, 1)
 //   K with a shuffle tree (the plan then has one K chunk);
 // * lstm_wgrad_kernel then sums dW_h = Σ round_W(h(t-1))ᵀ·dxw(t) and
 //   dproj = Σ m_maskedᵀ·dh_masked over the T·B row-steps, K split over
-//   enough blocks to fill the card, a 64 × 64 output tile a block on CUDA
-//   cores; the last block of a tile to finish sums its splits in split
-//   order, and dbias and the peepholes are the walk's group partials summed
-//   in group order. Every output is summed in one fixed order, with no
-//   atomics on values: relaunches give the same bits.
+//   enough blocks to fill the card, a 64 × 64 output tile a block (bf16 on
+//   tensor cores: mma.sync fed by ldmatrix.trans from the K-major streams;
+//   f32 on CUDA cores); the last block of a tile to finish sums its splits
+//   in split order, and dbias and the peepholes are the walk's group
+//   partials summed in group order. Every output is summed in one fixed
+//   order, with no atomics on values: relaunches give the same bits.
+//
+// At G width (U=760, P=257: every G layer's backward at B >= 32) the layer
+// does not fit one block, so K3's walk is K2's resident grid in its acc
+// mode (lstm_bwd_resident_kernel<W, true>, above): the same walk and
+// streams, and each block sums the dbias and peephole terms of its own
+// units, a thread's (row, unit) cells in registers over the steps, then
+// over the rows in row order, written once (no other block owns those
+// units: no partials, no atomics); then the same lstm_wgrad_kernel. The
+// first port (csrc/lstm_bwd.cu) took 33 ms a layer there at B=32, T=500.
 // ---------------------------------------------------------------------------
 
 constexpr int kEpi = 2;  // epilogue elements a thread: group rows × P ≤ 1024
@@ -1605,7 +1677,9 @@ struct WgradParams {
   const void* dxw;      // [T, B, G] W, from the walk
   const void* m;        // [T, B, U] W, masked m
   const void* dh;       // [T, B, P] W, masked dh_total
-  const float* part;    // [groups][7U], the walk's group partials
+  const float* part;    // [groups][7U], the row-group walk's group
+                        //   partials; null after the resident walk, which
+                        //   writes dbias and the peepholes itself
   float* split;         // [splits][P * G + U * P] scratch
   int* counters;        // [tiles], zero on entry
   float* dwh;           // [P, G]
@@ -1664,14 +1738,166 @@ __device__ void wgrad_tile(const TA* A, int lda, const W* Bm, int ldb,
     }
 }
 
+constexpr int kWgKm = 64;           // bf16: K rows staged at a time
+constexpr int kWgLd = kWgTile + 8;  // bf16 staging row stride: 144 bytes,
+                                    // so an ldmatrix's 8 rows miss banks
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
+  return __float2bfloat16(v);
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) {
+  return v;
+}
+
+// One K-major operand X [k][c] (row stride ld) of a stage: kWgKm rows
+// from kb, kWgTile columns from c0, zero past k1 and past C. fetch() loads
+// it into registers, stash() stores it to shared memory [kWgKm][kWgLd] in
+// bf16 (f32 rounded there), so that the loads stay in flight while the
+// previous stage's mma run. A thread keeps one column (kVec: one 16-byte
+// chunk of 8, for bf16 rows whose width and stride are multiples of 8)
+// and takes every kDq-th row from its first, a warp on consecutive
+// columns.
+template <typename T, bool kVec>
+struct WgStage {
+  static constexpr int kPerRow = kVec ? kWgTile / 8 : kWgTile;
+  static constexpr int kDq = kWgThreads / kPerRow;
+  static constexpr int kN = kWgKm / kDq;
+  using R = typename std::conditional<kVec, uint4, T>::type;
+  R r[kN];
+
+  __device__ __forceinline__ static int row0() {
+    return threadIdx.x / kPerRow;
+  }
+  __device__ __forceinline__ static int col() {
+    return (threadIdx.x % kPerRow) * (kVec ? 8 : 1);
+  }
+  __device__ __forceinline__ void fetch(const T* X, int ld, int kb, int k1,
+                                        int c0, int C) {
+    const int k = kb + row0(), j = col();
+    const bool col_in = c0 + j < C;
+    const T* x = X + (size_t)k * ld + c0 + j;
+    const size_t step = (size_t)kDq * ld;
+#pragma unroll
+    for (int q = 0; q < kN; ++q) {
+      const bool in = col_in && k + q * kDq < k1;
+      if constexpr (kVec)
+        r[q] = in ? __ldg(reinterpret_cast<const uint4*>(x + q * step))
+                  : make_uint4(0, 0, 0, 0);
+      else
+        r[q] = in ? __ldg(x + q * step) : T{};
+    }
+  }
+  __device__ __forceinline__ void stash(__nv_bfloat16* s) const {
+    __nv_bfloat16* d = s + row0() * kWgLd + col();
+#pragma unroll
+    for (int q = 0; q < kN; ++q) {
+      if constexpr (kVec)
+        *reinterpret_cast<uint4*>(d + q * kDq * kWgLd) = r[q];
+      else
+        d[q * kDq * kWgLd] = to_bf16(r[q]);
+    }
+  }
+};
+
+// The same tile on tensor cores (bf16): C[m, n] = Σ_{k0 ≤ k < k1}
+// round_bf16(A[k, m]) · Bm[k, n], f32 accumulation. 8 warps in 2 (m) x 4
+// (n), a warp 32 x 16 of C: two 16-row x two 8-column mma.m16n8k16 tiles.
+// Both operands are K-major, so a stage of kWgKm rows lands in shared
+// memory as it lies ([k][m] and [k][n]) and the fragments come by
+// ldmatrix.trans. Two stage buffers: the next stage's loads are issued
+// before this stage's mma and stored after them, one barrier a stage.
+// Each output sums its k in order, 16 at a time in the mma.
+template <typename TA, bool kVecA, bool kVecB>
+__device__ void wgrad_tile_mma(const TA* A, int lda, const __nv_bfloat16* Bm,
+                               int ldb, int k0, int k1, int M, int N, int m0,
+                               int n0, float* out, int ldo,
+                               __nv_bfloat16* s) {
+  constexpr int kStage = 2 * kWgKm * kWgLd;  // a buffer: A, then B
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp / 4) * 32, wn = (warp % 4) * 16;
+  const bool busy = m0 + wm < M && n0 + wn < N;  // warp-uniform
+  WgStage<TA, kVecA> ra;
+  WgStage<__nv_bfloat16, kVecB> rb;
+  auto fetch = [&](int kb) {
+    ra.fetch(A, lda, kb, k1, m0, M);
+    rb.fetch(Bm, ldb, kb, k1, n0, N);
+  };
+  auto stash = [&](int buf) {
+    ra.stash(s + buf * kStage);
+    rb.stash(s + buf * kStage + kWgKm * kWgLd);
+  };
+  // this lane's ldmatrix row: matrix lane / 8, row lane % 8. A's four 8x8
+  // matrices are a0..a3 of the m16 x k16 fragment: (k 0-7 | 8-15) x (m 0-7
+  // | 8-15); B's are (k 0-7, n 0-7), (k 8-15, n 0-7), then n 8-15: b0 b1
+  // of two n8 tiles
+  const int mi = lane / 8, r = lane % 8;
+  const int a_off = (r + (mi / 2) * 8) * kWgLd + wm + (mi % 2) * 8;
+  const int b_off = (r + (mi % 2) * 8) * kWgLd + wn + (mi / 2) * 8;
+  float c[2][2][4] = {};
+  fetch(k0);
+  stash(0);
+  __syncthreads();
+  int buf = 0;
+  for (int kb = k0; kb < k1; kb += kWgKm) {
+    const bool next = kb + kWgKm < k1;
+    if (next) fetch(kb + kWgKm);  // in flight during this stage's mma
+    if (busy) {
+      const __nv_bfloat16* sa = s + buf * kStage;
+      const uint32_t a_at = smem_addr(sa + a_off);
+      const uint32_t b_at = smem_addr(sa + kWgKm * kWgLd + b_off);
+#pragma unroll
+      for (int ks = 0; ks < kWgKm; ks += 16) {
+        uint32_t a[2][4], b[4];
+        ldmatrix_x4_trans(a[0], a_at + ks * kWgLd * 2);
+        ldmatrix_x4_trans(a[1], a_at + (ks * kWgLd + 16) * 2);
+        ldmatrix_x4_trans(b, b_at + ks * kWgLd * 2);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(c[mt][0], a[mt], b[0], b[1]);
+          mma_bf16(c[mt][1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+    if (next) stash(buf ^ 1);
+    __syncthreads();
+    buf ^= 1;
+  }
+  if (!busy) return;
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int m = m0 + wm + mt * 16 + g, n = n0 + wn + nt * 8 + 2 * tq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows m and m + 8
+        const int mm = m + 8 * h;
+        if (mm >= M) continue;
+        if (n < N) out[(size_t)mm * ldo + n] = c[mt][nt][2 * h];
+        if (n + 1 < N) out[(size_t)mm * ldo + n + 1] = c[mt][nt][2 * h + 1];
+      }
+    }
+}
+
 // Blocks [0, tiles * splits): block (split s, tile) computes its K slice of
-// one output tile of dW_h (tiles [0, tiles_wh)) or dproj; the tile's last
-// block sums the splits in split order. The blocks after them sum dbias and
+// one output tile of dW_h (tiles [0, tiles_wh)) or dproj, bf16 on tensor
+// cores and f32 on CUDA cores; the tile's last block sums the splits in
+// split order. The blocks after them (row-group walk only) sum dbias and
 // the peepholes over the walk's groups in group order.
 template <typename W>
-__global__ void __launch_bounds__(kWgThreads)
+__global__ void __launch_bounds__(kWgThreads, 2)
     lstm_wgrad_kernel(const WgradParams p) {
-  __shared__ float sA[kWgK][kWgTile], sB[kWgK][kWgTile];
+  constexpr bool kBf16 = sizeof(W) == 2;
+  __shared__ __align__(16) unsigned char
+      s_raw[kBf16 ? 4 * kWgKm * kWgLd * 2 : 2 * kWgK * kWgTile * 4];
   __shared__ int s_last;
   const int B = p.B, U = p.U, P = p.P, G = 4 * U;
   const int tile_blocks = p.tiles * p.splits;
@@ -1702,13 +1928,35 @@ __global__ void __launch_bounds__(kWgThreads)
   const int rows = wh ? p.rows_wh : p.rows_proj;
   const int k0 = min(s * rows, K), k1 = min(k0 + rows, K);
   float* out = p.split + s * stride + (wh ? 0 : n_wh);
-  if (wh)
-    wgrad_tile<W>(p.h_hist, P, static_cast<const W*>(p.dxw) + (size_t)B * G,
-                  G, k0, k1, M, N, m0, n0, out, N, sA, sB);
-  else
-    wgrad_tile<W>(static_cast<const W*>(p.m), U,
-                  static_cast<const W*>(p.dh), P, k0, k1, M, N, m0, n0, out,
-                  N, sA, sB);
+  const W* dxw1 = static_cast<const W*>(p.dxw) + (size_t)B * G;
+  const W* m_in = static_cast<const W*>(p.m);
+  const W* dh_in = static_cast<const W*>(p.dh);
+  if constexpr (kBf16) {
+    // 16-byte loads for the bf16 stream whose rows allow them (dxw where
+    // 4U % 8 == 0, m where U % 8 == 0)
+    auto* st = reinterpret_cast<__nv_bfloat16*>(s_raw);
+    if (wh && G % 8 == 0)
+      wgrad_tile_mma<float, false, true>(p.h_hist, P, dxw1, G, k0, k1, M, N,
+                                         m0, n0, out, N, st);
+    else if (wh)
+      wgrad_tile_mma<float, false, false>(p.h_hist, P, dxw1, G, k0, k1, M,
+                                          N, m0, n0, out, N, st);
+    else if (U % 8 == 0)
+      wgrad_tile_mma<__nv_bfloat16, true, false>(m_in, U, dh_in, P, k0, k1,
+                                                 M, N, m0, n0, out, N, st);
+    else
+      wgrad_tile_mma<__nv_bfloat16, false, false>(m_in, U, dh_in, P, k0, k1,
+                                                  M, N, m0, n0, out, N, st);
+  } else {
+    auto* sA = reinterpret_cast<float(*)[kWgTile]>(s_raw);
+    auto* sB = sA + kWgK;
+    if (wh)
+      wgrad_tile<W>(p.h_hist, P, dxw1, G, k0, k1, M, N, m0, n0, out, N, sA,
+                    sB);
+    else
+      wgrad_tile<W>(m_in, U, dh_in, P, k0, k1, M, N, m0, n0, out, N, sA,
+                    sB);
+  }
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0)
@@ -1766,11 +2014,19 @@ int lstm_bwd_resident(const void* params, int use_bf16, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   BwdParams q = *static_cast<const BwdParams*>(params);
+  // acc mode sums at most kAccCells (row, unit) cells a thread: refuse a
+  // block of more rather than drop the cells past them
+  if (q.acc && q.B * q.NU > kAccCells * kThreads)
+    return (int)cudaErrorInvalidValue;
   const void* kernel =
-      use_bf16
-          ? reinterpret_cast<const void*>(
-                lstm_bwd_resident_kernel<__nv_bfloat16>)
-          : reinterpret_cast<const void*>(lstm_bwd_resident_kernel<float>);
+      use_bf16 ? (q.acc ? reinterpret_cast<const void*>(
+                              lstm_bwd_resident_kernel<__nv_bfloat16, true>)
+                        : reinterpret_cast<const void*>(
+                              lstm_bwd_resident_kernel<__nv_bfloat16, false>))
+               : (q.acc ? reinterpret_cast<const void*>(
+                              lstm_bwd_resident_kernel<float, true>)
+                        : reinterpret_cast<const void*>(
+                              lstm_bwd_resident_kernel<float, false>));
   return (int)launch_cooperative(kernel, &q, q.blocks, q.smem,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -1847,8 +2103,9 @@ int lstm_wgrad(const void* params, int use_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const WgradParams q = *static_cast<const WgradParams*>(params);
-  const int blocks =
-      q.tiles * q.splits + (7 * q.U + kWgThreads - 1) / kWgThreads;
+  // the dbias and peephole blocks only where there are group partials
+  const int blocks = q.tiles * q.splits +
+                     (q.part ? (7 * q.U + kWgThreads - 1) / kWgThreads : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (use_bf16)
     lstm_wgrad_kernel<__nv_bfloat16><<<blocks, kWgThreads, 0, s>>>(q);

@@ -17,14 +17,19 @@ launches its kernel for CUDA tensors, or raises:
   one-block-per-SM grid holds a slice of W_h and proj in shared memory
   for the whole walk, as ``resident_plan`` partitions them.
 * ``lstm_bwd_acc`` (K3, ``_bwd_kernel_acc``): the same walk with the
-  weight gradients reduced by the kernels. Where the layer's weights fit
-  in one block (the D layer, ``rowgroup_bwd_route``) it runs the
-  row-group walk of ``csrc/resident.cu`` (K1's design backwards:
-  ``rowgroup_bwd_plan``), which also sums the dbias and peephole terms per
-  row group, and then ``lstm_wgrad_kernel``, which reduces dW_h and dproj
-  from its streams in a fixed split-K order (``wgrad_plan``); elsewhere
-  (G width) ``csrc/lstm_bwd.cu`` (``acc=1``), which streams its weights
-  from L2.
+  weight gradients reduced by the kernels, on one of three routes that
+  the plans decide (``bwd_acc_route``): where the layer's weights fit in
+  one block (the D layer) the row-group walk of ``csrc/resident.cu``
+  (K1's design backwards: ``rowgroup_bwd_plan``), which also sums the
+  dbias and peephole terms per row group; elsewhere, where K2's resident
+  grid fits (G width), K2's walk in its accumulate mode
+  (``resident_plan(..., acc=True)``), whose blocks sum those terms for
+  their own units. Either walk is followed by ``lstm_wgrad_kernel``,
+  which reduces dW_h and dproj from the walk's streams in a fixed
+  split-K order (``wgrad_plan``; bf16 on tensor cores). The other shapes
+  (G width in f32 past ``RESIDENT_F32_MAX_ROWS`` rows, where it is the
+  faster route) take ``csrc/lstm_bwd.cu`` (``acc=1``), which streams its
+  weights from L2.
 
 ``lstm_layer_bwd`` picks K2 below ``ACC_BWD_MIN_BATCH`` rows and K3 from
 there, as the JAX package does; ``lstm_seq`` is the differentiable layer
@@ -496,7 +501,10 @@ class BwdPlan:
     ``blocks`` partials with tpi threads (``resident.threads_per_sum``).
     ``offsets`` is the shared-memory layout, ``n_res_*`` the weight rows
     held there (the rest is read from the packed slice in global
-    memory)."""
+    memory). With ``acc`` (K3's walk) each thread also sums the dbias and
+    peephole terms of its (row, unit) cells, at most ``ACC_CELLS``, over
+    the steps in registers; at the end the block sums them over its rows
+    in row order through shared memory [7, B, NU] laid over region "a"."""
     B: int
     U: int
     P: int
@@ -516,22 +524,31 @@ class BwdPlan:
     tpi: int
     offsets: Dict[str, int]
     smem: int
+    acc: bool
 
     def weights_resident(self) -> bool:
         return self.n_res_proj == self.NUn and self.n_res_wh == self.Np
 
 
+RESIDENT_THREADS = 256  # threads a block of the resident grids (kThreads)
+ACC_CELLS = 8           # (row, unit) cells a thread sums in acc mode
+
+
 def resident_plan(B: int, U: int, P: int, dtype: torch.dtype,
-                  sms: int) -> BwdPlan:
+                  sms: int, acc: bool = False) -> BwdPlan:
     """K2's grid on a card with ``sms`` SMs: one block per SM, at most one
     per unit; units and dh columns split into balanced contiguous slices.
-    Raises ValueError, with the shape, where no layout fits."""
+    ``acc``: the same walk as K3's, which also sums dbias and the peephole
+    gradients (a block's B·NU cells within ACC_CELLS a thread, region "a"
+    large enough for the sums' row reduction). Raises ValueError, with the
+    shape, where no layout fits."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
     wb = 2 if dtype == torch.bfloat16 else 4
     shape = f"B={B} U={U} P={P} {dtype}"
+    name = "K3" if acc else "K2"
     if min(B, U, P, sms) < 1:
-        raise ValueError(f"no resident K2 plan for {shape} on {sms} SMs")
+        raise ValueError(f"no resident {name} plan for {shape} on {sms} SMs")
     blocks = min(sms, U)
     units = resident.balanced_bounds(U, blocks)
     NU = max(b - a for a, b in zip(units, units[1:]))
@@ -539,19 +556,27 @@ def resident_plan(B: int, U: int, P: int, dtype: torch.dtype,
                    ((NU, 8), (P, 8), (B, 16)))
     K1, K2 = resident.round_up(P, 16), resident.round_up(4 * NU, 16)
     ld1, ld2 = K1 + 8, K2 + 8
+    a_bytes = Mp * ld1 * wb
+    if acc:
+        if B * NU > ACC_CELLS * RESIDENT_THREADS:
+            raise ValueError(
+                f"no resident K3 plan for {shape}: {B} rows x {NU} units a "
+                f"block exceed {ACC_CELLS * RESIDENT_THREADS} summed cells")
+        a_bytes = max(a_bytes, 7 * B * NU * 4)
     try:
         offsets, rows, smem = resident.layout(
-            {"a": Mp * ld1 * wb, "dm": B * NU * 4, "dg": Mp * ld2 * wb,
+            {"a": a_bytes, "dm": B * NU * 4, "dg": Mp * ld2 * wb,
              "dc": B * NU * 4, "k": (3 * NU + B) * 4},
             [("proj", ld1 * wb, NUn), ("wh", ld2 * wb, Np)])
     except ValueError as e:
-        raise ValueError(f"no resident K2 plan for {shape}: {e}") from None
+        raise ValueError(f"no resident {name} plan for {shape}: {e}") \
+            from None
     cols = resident.balanced_bounds(P, blocks)
     tpi = resident.threads_per_sum(
         B * max(b - a for a, b in zip(cols, cols[1:])))
     return BwdPlan(B, U, P, blocks, tuple(units), tuple(cols), NU, NUn,
                    K1, ld1, Np, K2, ld2, Mp, rows["proj"], rows["wh"], tpi,
-                   offsets, smem)
+                   offsets, smem, acc)
 
 
 def pack_bwd_weights(w_h, proj, plan: BwdPlan):
@@ -572,14 +597,15 @@ def pack_bwd_weights(w_h, proj, plan: BwdPlan):
 
 
 def _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi, wf,
-                         wo):
-    """One launch of K2's resident kernel on CUDA tensors."""
+                         wo, acc=False):
+    """One launch of K2's resident kernel on CUDA tensors: (dxw, m, dh),
+    with ``acc`` (K3's walk) also (dbias, dwi, dwf, dwo) in f32."""
     _check_bwd(acts, lengths, dout, c_hist, None, w_h, proj, wi, wf, wo)
     T, B, G = acts.shape
     U, P = proj.shape
     cdt, dev = w_h.dtype, acts.device
     with torch.cuda.device(dev):
-        plan = resident_plan(B, U, P, cdt, resident.sm_count(dev))
+        plan = resident_plan(B, U, P, cdt, resident.sm_count(dev), acc)
         proj_pk, wh_pk = pack_bwd_weights(w_h, proj, plan)
         bounds = torch.tensor(plan.unit_bounds + plan.col_bounds,
                               dtype=torch.int32, device=dev)
@@ -589,18 +615,21 @@ def _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi, wf,
         dxw = torch.empty((T, B, G), dtype=cdt, device=dev)
         m_out = torch.empty((T, B, U), dtype=cdt, device=dev)
         dh_out = torch.empty((T, B, P), dtype=cdt, device=dev)
+        sums = (torch.empty((G,), **f32),) + tuple(
+            torch.empty((U,), **f32) for _ in range(3)) if acc else ()
         o = plan.offsets
         params = resident.BwdParams(
             *(t.data_ptr() for t in (acts, lengths, dout, c_hist, wi, wf, wo,
                                      proj_pk, wh_pk, bounds, dh, partial,
-                                     dxw, m_out, dh_out)),
+                                     dxw, m_out, dh_out) + sums),
+            *[None] * (4 - len(sums)),
             T, B, U, P, plan.blocks, plan.NU, plan.NUn, plan.K1, plan.ld1,
             plan.Np, plan.K2, plan.ld2, plan.Mp, plan.n_res_proj,
-            plan.n_res_wh, plan.tpi, o["a"], o["dm"], o["dg"], o["dc"],
-            o["k"], o["proj"], o["wh"], plan.smem)
+            plan.n_res_wh, plan.tpi, int(acc), o["a"], o["dm"], o["dg"],
+            o["dc"], o["k"], o["proj"], o["wh"], plan.smem)
         resident.launch("lstm_bwd_resident", params, cdt == torch.bfloat16,
                         dev, f"T={T} B={B} U={U} P={P} {cdt}")
-    return dxw, m_out, dh_out
+    return (dxw, m_out, dh_out) + sums
 
 
 def lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
@@ -754,8 +783,7 @@ def pack_bwd_rowgroup_weights(w_h, proj, plan: RowBwdPlan):
 def rowgroup_bwd_route(B: int, U: int, P: int, sms: int) -> bool:
     """Whether K3 at these sizes takes the row-group walk (on a card with
     ``sms`` SMs): where the layer's bf16 weights all fit in one block, as
-    the D layer's do, in either dtype. Everything else (G width) takes
-    csrc/lstm_bwd.cu."""
+    the D layer's do, in either dtype."""
     try:
         return rowgroup_bwd_plan(B, U, P, torch.bfloat16,
                                  sms).weights_resident()
@@ -763,9 +791,36 @@ def rowgroup_bwd_route(B: int, U: int, P: int, sms: int) -> bool:
         return False
 
 
+# Most rows for which f32 takes the resident walk. Its f32 products run on
+# CUDA cores and grow with the rows faster than csrc/lstm_bwd.cu's, which
+# is the faster route past this at G width on the H100
+# (tools/time_k3_routes.py; PERF.md section 6).
+RESIDENT_F32_MAX_ROWS = 48
+
+
+def bwd_acc_route(B: int, U: int, P: int, dtype: torch.dtype,
+                  sms: int) -> str:
+    """K3's route at these sizes on a card with ``sms`` SMs, a pure
+    function of the shape: "rowgroup" where ``rowgroup_bwd_route`` holds
+    (the D layer); else "resident" where K2's grid holds the walk in acc
+    mode (``resident_plan(..., acc=True)``: G width at B=32..256 in bf16)
+    and, in f32, B is at most RESIDENT_F32_MAX_ROWS; else "streaming"
+    (csrc/lstm_bwd.cu: G width in f32 past those rows)."""
+    if rowgroup_bwd_route(B, U, P, sms):
+        return "rowgroup"
+    if dtype == torch.float32 and B > RESIDENT_F32_MAX_ROWS:
+        return "streaming"
+    try:
+        resident_plan(B, U, P, dtype, sms, acc=True)
+    except ValueError:
+        return "streaming"
+    return "resident"
+
+
 WG_TILE = 64   # the reduction's output tile edge (kWgTile)
-WG_K = 32      # K rows it stages at a time (kWgK)
+WG_K = 32      # K rows its f32 path stages at a time (kWgK)
 WG_THREADS = 256
+WG_FILL = 4    # blocks an SM the K split aims for, where K allows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -775,28 +830,57 @@ class WgradPlan:
     dW_h [P, 4U] in ``tiles_wh`` 64 x 64 tiles, then dproj [U, P]: tiles
     ``tiles`` in all, each reduced over its K = (T-1)·B (dW_h) or T·B
     (dproj) row-steps in ``splits`` slices of ``rows_wh`` / ``rows_proj``
-    rows, one block a (slice, tile), the slices then summed in order; the
-    ``vec_blocks`` blocks after them sum dbias and the peepholes over the
-    walk's groups."""
+    rows, one block a (slice, tile), the slices then summed in order.
+    After the row-group walk the launcher adds the blocks that sum dbias
+    and the peepholes over its group partials."""
     tiles_wh: int
     tiles: int
     splits: int
     rows_wh: int
     rows_proj: int
-    vec_blocks: int
 
 
 def wgrad_plan(T: int, B: int, U: int, P: int, sms: int) -> WgradPlan:
-    """K split so that the (slice, tile) blocks give every SM about two."""
+    """K split so that the (slice, tile) blocks give every SM at least
+    WG_FILL (G width: 300 tiles in 2 slices; the D layer: 20 in 27), where
+    K has that many WG_K-row slices."""
     G, ceil = 4 * U, lambda a, b: -(-a // b)  # noqa: E731
     tiles_wh = ceil(P, WG_TILE) * ceil(G, WG_TILE)
     tiles = tiles_wh + ceil(U, WG_TILE) * ceil(P, WG_TILE)
-    splits = max(1, min(ceil(2 * sms, tiles), ceil(T * B, WG_K)))
+    splits = max(1, min(ceil(WG_FILL * sms, tiles), ceil(T * B, WG_K)))
 
     def rows(K):
         return max(WG_K, resident.round_up(ceil(K, splits), WG_K))
-    return WgradPlan(tiles_wh, tiles, splits, rows((T - 1) * B), rows(T * B),
-                     ceil(7 * U, WG_THREADS))
+    return WgradPlan(tiles_wh, tiles, splits, rows((T - 1) * B), rows(T * B))
+
+
+def _launch_wgrad(h_hist, dxw, m, dh, part=None):
+    """K3's weight-gradient reduction on CUDA tensors, after a walk: (dwh,
+    dproj) in f32 from the walk's streams dxw, m and dh and from h_hist;
+    with the row-group walk's group partials ``part`` [groups, 7U] also
+    (dbias, dwi, dwf, dwo)."""
+    T, B, G = dxw.shape
+    U, P = m.shape[2], dh.shape[2]
+    cdt, dev = dxw.dtype, dxw.device
+    with torch.cuda.device(dev):
+        wplan = wgrad_plan(T, B, U, P, resident.sm_count(dev))
+        f32 = dict(dtype=torch.float32, device=dev)
+        grads = (torch.empty((P, G), **f32), torch.empty((U, P), **f32))
+        if part is not None:
+            grads += (torch.empty((G,), **f32),) + tuple(
+                torch.empty((U,), **f32) for _ in range(3))
+        split = torch.empty((wplan.splits, P * G + U * P), **f32)
+        counters = torch.zeros(wplan.tiles, dtype=torch.int32, device=dev)
+        ptrs = [t.data_ptr() for t in grads] + [None] * (6 - len(grads))
+        wparams = resident.WgradParams(
+            h_hist.data_ptr(), dxw.data_ptr(), m.data_ptr(), dh.data_ptr(),
+            None if part is None else part.data_ptr(), split.data_ptr(),
+            counters.data_ptr(), *ptrs, T, B, U, P,
+            0 if part is None else part.shape[0], wplan.splits,
+            wplan.tiles_wh, wplan.tiles, wplan.rows_wh, wplan.rows_proj)
+        resident.launch("lstm_wgrad", wparams, cdt == torch.bfloat16, dev,
+                        f"T={T} B={B} U={U} P={P} {cdt}")
+    return grads
 
 
 def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
@@ -808,9 +892,7 @@ def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
     cdt, dev = w_h.dtype, acts.device
     bf16, shape = cdt == torch.bfloat16, f"T={T} B={B} U={U} P={P} {cdt}"
     with torch.cuda.device(dev):
-        sms = resident.sm_count(dev)
-        plan = rowgroup_bwd_plan(B, U, P, cdt, sms)
-        wplan = wgrad_plan(T, B, U, P, sms)
+        plan = rowgroup_bwd_plan(B, U, P, cdt, resident.sm_count(dev))
         wp_pk, wh_pk = pack_bwd_rowgroup_weights(w_h, proj, plan)
         rows = torch.tensor(plan.row_bounds, dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
@@ -829,27 +911,27 @@ def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
             plan.n_res_h, o["a1"], o["a2"], o["dm"], o["acts"], o["c"],
             o["dc"], o["part"], o["len"], o["wp"], o["wh"], plan.smem)
         resident.launch("lstm_bwd_rowgroup", params, bf16, dev, shape)
-        grads = (torch.empty((P, G), **f32), torch.empty((U, P), **f32),
-                 torch.empty((G,), **f32), torch.empty((U,), **f32),
-                 torch.empty((U,), **f32), torch.empty((U,), **f32))
-        split = torch.empty((wplan.splits, P * G + U * P), **f32)
-        counters = torch.zeros(wplan.tiles, dtype=torch.int32, device=dev)
-        wparams = resident.WgradParams(
-            *(t.data_ptr() for t in (h_hist, dxw, m_out, dh_out, part, split,
-                                     counters) + grads),
-            T, B, U, P, plan.groups, wplan.splits, wplan.tiles_wh,
-            wplan.tiles, wplan.rows_wh, wplan.rows_proj)
-        resident.launch("lstm_wgrad", wparams, bf16, dev, shape)
-    return (dxw,) + grads
+    return (dxw,) + _launch_wgrad(h_hist, dxw, m_out, dh_out, part)
+
+
+def _launch_bwd_resident_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj,
+                             wi, wf, wo):
+    """K3 on CUDA tensors: K2's resident walk in acc mode (dxw, m, dh
+    and the dbias and peephole sums), then the reduction."""
+    _check_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo)
+    dxw, m, dh, *sums = _launch_bwd_resident(
+        acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo, acc=True)
+    return (dxw,) + _launch_wgrad(h_hist, dxw, m, dh) + tuple(sums)
 
 
 def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
                  wo):
     """K3 (arguments and results as ``lstm_bwd_acc_reference``). CPU
-    tensors take the twin; CUDA tensors launch, as ``rowgroup_bwd_route``
-    decides, the row-group walk and the reduction of csrc/resident.cu
-    (counted in ``launches``) or csrc/lstm_bwd.cu (counted in
-    ``streaming_launches``), or raise."""
+    tensors take the twin; CUDA tensors launch the route ``bwd_acc_route``
+    names, each counted apart: the row-group walk and the reduction of
+    csrc/resident.cu (``launches``), the resident walk and the reduction
+    (``resident_launches``) or csrc/lstm_bwd.cu (``streaming_launches``);
+    a refused launch raises."""
     if acts.device.type == "cpu":
         return lstm_bwd_acc_reference(acts, lengths, dout, c_hist, h_hist,
                                       w_h, proj, wi, wf, wo)
@@ -857,18 +939,22 @@ def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
         raise ValueError(f"no LSTM backward kernel for device {acts.device}")
     _, B, _ = acts.shape
     U, P = proj.shape
-    if rowgroup_bwd_route(B, U, P, resident.sm_count(acts.device)):
-        out = _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h,
-                                   proj, wi, wf, wo)
+    route = bwd_acc_route(B, U, P, w_h.dtype, resident.sm_count(acts.device))
+    args = (acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo)
+    if route == "rowgroup":
+        out = _launch_bwd_rowgroup(*args)
         lstm_bwd_acc.launches += 1
+    elif route == "resident":
+        out = _launch_bwd_resident_acc(*args)
+        lstm_bwd_acc.resident_launches += 1
     else:
-        out = _launch_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
-                          wf, wo, acc=True)
+        out = _launch_bwd(*args, acc=True)
         lstm_bwd_acc.streaming_launches += 1
     return out
 
 
 lstm_bwd_acc.launches = 0  # row-group walk + reduction launches
+lstm_bwd_acc.resident_launches = 0  # resident walk + reduction launches
 lstm_bwd_acc.streaming_launches = 0  # csrc/lstm_bwd.cu launches
 
 

@@ -73,10 +73,11 @@ class BwdParams(ctypes.Structure):
     """``BwdParams`` of csrc/resident.cu, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in (
         "acts", "lengths", "dout", "c_hist", "wi", "wf", "wo", "proj_pk",
-        "wh_pk", "bounds", "dh", "partial", "dxw", "m_out", "dh_out")]
+        "wh_pk", "bounds", "dh", "partial", "dxw", "m_out", "dh_out",
+        "dbias", "dwi", "dwf", "dwo")]
         + [(n, ctypes.c_int) for n in (
             "T", "B", "U", "P", "blocks", "NU", "NUn", "K1", "ld1", "Np",
-            "K2", "ld2", "Mp", "n_res_proj", "n_res_wh", "tpi",
+            "K2", "ld2", "Mp", "n_res_proj", "n_res_wh", "tpi", "acc",
             "off_a", "off_dm", "off_dg", "off_dc", "off_k", "off_proj",
             "off_wh", "smem")])
 

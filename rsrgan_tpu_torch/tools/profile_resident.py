@@ -10,7 +10,8 @@ full length: K4 decode at B = 1, 16 and 64 (T=512), K4 train (B=16,
 T=500), K2 at G width (U=760, P=257) and at D width (U=256, P=40), B=16,
 T=500, K1 (the row-group kernel) at D width with 16 and 32 rows,
 T=500, in training mode, and K3 (the row-group walk, timed with its
-reduction) at D width with 32 and 64 rows, T=500. Prints the card's
+reduction) at D width with 32 and 64 rows, T=500, and (K2's resident walk
+in acc mode, timed with its reduction) at G width, B=32. Prints the card's
 ``name, power.limit`` and one
 JSON line per case: the kernel's time (CUDA events, 3 launches, without
 the timers' cost removed), microseconds per step, and each section's
@@ -142,6 +143,17 @@ def main() -> int:
                wo[0])
         measure(lib, f"K2 U={U_} P={P_} B=16 T=500",
                 lambda: ls.lstm_bwd(*bwd), 500, K2_SECTIONS, 0)
+    # K3 at G width, the CLI's default B=32: K2's sections (the time
+    # includes the reduction after the walk)
+    largs = stack_args(rng, 1, U, P, 32, 500, cdt)
+    _, c_s, h_s, acts = wf.lstm_wavefront_fwd_train(*largs, residual=False)
+    dout = torch.from_numpy(
+        rng.normal(size=(500, 32, P)).astype(np.float32)).cuda()
+    _, lens, _, _, wh, proj, _, wi, wf_, wo = largs
+    bwd = (acts[0], lens, dout, c_s[0], h_s[0], wh[0], proj[0], wi[0],
+           wf_[0], wo[0])
+    measure(lib, f"K3 U={U} P={P} B=32 T=500",
+            lambda: ls.lstm_bwd_acc(*bwd), 500, K2_SECTIONS, 0)
     for B in (16, 32, 64):
         largs = stack_args(rng, 1, 256, 40, B, 500, cdt)
         fwd = (largs[0], largs[1], largs[4][0], largs[5][0], largs[6][0],

@@ -315,8 +315,9 @@ def test_rowgroup_lstm_fwd_g_width(cuda_device, cdt):
 
 
 # ---------------------------------------------------------------------------
-# K3: the row-group walk and its reduction (csrc/resident.cu), and the
-# streaming kernel (csrc/lstm_bwd.cu) at G's width
+# K3: the row-group walk and its reduction (csrc/resident.cu), K2's
+# resident walk in acc mode and the reduction (G width), and the streaming
+# kernel (csrc/lstm_bwd.cu)
 # ---------------------------------------------------------------------------
 
 def bwd_acc_args(device, cdt, rows, U_, P_, seed):
@@ -342,6 +343,12 @@ def bwd_acc_args(device, cdt, rows, U_, P_, seed):
     return acts, lens, dout, c, h, w_h, proj, wi, wf, wo
 
 
+def k3_counts(ls):
+    """K3's launches by route: row-group, resident, streaming."""
+    return (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.resident_launches,
+            ls.lstm_bwd_acc.streaming_launches)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows", [1, 3, 17, 33, 64])
@@ -352,10 +359,9 @@ def test_rowgroup_lstm_bwd_acc(cuda_device, cdt, rows, U_, P_):
     reduction (one count), and two launches give the same bits."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     args = bwd_acc_args(cuda_device, cdt, rows, U_, P_, rows + U_)
-    before = (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.streaming_launches)
+    before = k3_counts(ls)
     got = ls.lstm_bwd_acc(*args)
-    assert (ls.lstm_bwd_acc.launches,
-            ls.lstm_bwd_acc.streaming_launches) == (before[0] + 1, before[1])
+    assert k3_counts(ls) == (before[0] + 1, before[1], before[2])
     assert_close(got, ls.lstm_bwd_acc_reference(*args), cdt)
     again = ls.lstm_bwd_acc(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
@@ -364,11 +370,33 @@ def test_rowgroup_lstm_bwd_acc(cuda_device, cdt, rows, U_, P_):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_lstm_bwd_acc_g_width_streams(cuda_device, cdt):
-    """At G's width (U=760, P=257) K3 takes csrc/lstm_bwd.cu."""
+    """At G's width (U=760, P=257), B=32, K3 takes K2's resident walk in
+    acc mode and the reduction (one count), whose relaunch gives the same
+    bits; csrc/lstm_bwd.cu, the route of shapes no resident plan holds,
+    agrees with the twin on the same inputs."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     args = bwd_acc_args(cuda_device, cdt, 32, 760, 257, 9)
-    before = (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.streaming_launches)
+    before = k3_counts(ls)
     got = ls.lstm_bwd_acc(*args)
-    assert (ls.lstm_bwd_acc.launches,
-            ls.lstm_bwd_acc.streaming_launches) == (before[0], before[1] + 1)
+    assert k3_counts(ls) == (before[0], before[1] + 1, before[2])
+    want = ls.lstm_bwd_acc_reference(*args)
+    assert_close(got, want, cdt)
+    assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_bwd_acc(*args)))
+    assert_close(ls._launch_bwd(*args, acc=True), want, cdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [32, 33, 64])
+@pytest.mark.parametrize("U_,P_", [(13, 9), (200, 40)])
+def test_resident_lstm_bwd_acc(cuda_device, cdt, rows, U_, P_):
+    """K3's resident route called directly at odd shapes (units that do not
+    divide the grid, P and 4U not multiples of the reduction's tiles), a
+    zero-length row: all seven outputs against the twin, and a relaunch
+    gives the same bits."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    args = bwd_acc_args(cuda_device, cdt, rows, U_, P_, 2 * rows + U_)
+    got = ls._launch_bwd_resident_acc(*args)
     assert_close(got, ls.lstm_bwd_acc_reference(*args), cdt)
+    again = ls._launch_bwd_resident_acc(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
