@@ -35,20 +35,41 @@ JSON line each; any failure ends the run non-zero:
    resident route in every layer) and of D (16 and 32 rows) through the
    kernels' autograd Functions against the eager cell under autograd,
    f32.
-5. train — a seeded store of 64 train and 16 cv utterances (150-600
-   frames, 257 -> 40) and a CMVN npz; one epoch of
-   ``rsrgan_tpu_torch.cli.train.main(["--trainer=gan_rnn",
-   "--g_type=res_lstm_l", "--batch_size=16", ...])`` on the default bf16
-   kernel path (the main path: every kernel's launch count is reset
-   before it and read after it); decode from its checkpoint; one f32
-   train step on one batch through the kernels against --lstm_impl=scan;
-   and one bf16 train step at T=600 under torch.profiler (device time by
-   kernel, device busy share; the D step's backward must show on K3's
-   row-group kernels and not on csrc/lstm_bwd.cu), then one at B=32, the
-   CLI's default (the 32 longest utterances): its 8 G-layer backwards on
-   K3's resident route (counts set to 0 just before the step), none on
-   csrc/lstm_bwd.cu.
-6. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
+5. train — a seeded store of 128 train utterances (four length buckets
+   of 32: two batches of each at B=16, interleaved by the shuffle, so
+   the JAX CLI's update order, which the port follows, is not the
+   batcher's) and 16 cv utterances (150-600 frames, 257 -> 40) and a
+   CMVN npz; one epoch of ``rsrgan_tpu_torch.cli.train.main(
+   ["--trainer=gan_rnn", "--g_type=res_lstm_l", "--batch_size=16",
+   ...])`` with ``--device_feed=off`` (the host feed), then one with the
+   default flags on the bf16 kernel path, which on a card feed from the
+   resident tables (the main path: every kernel's launch count is reset
+   before it and read after it); the two checkpoints and metrics rows
+   must be bit-equal, and both feeds' train frames/s and ms per
+   iteration are printed on a line of their own; one epoch with
+   ``--same_batch=false`` (the graph-fed loop) and one with
+   ``--d_conditioned=true``, each with finite losses and on the kernel
+   routes (launch counts); decode from the main path's checkpoint; one
+   f32 train step on one batch through the kernels against
+   --lstm_impl=scan; and one bf16 train step at T=600 under
+   torch.profiler (device time by kernel, device busy share; the D
+   step's backward must show on K3's row-group kernels and not on
+   csrc/lstm_bwd.cu), then one at B=32, the CLI's default (the 32
+   longest utterances): its 8 G-layer backwards on K3's resident route
+   (counts set to 0 just before the step), none on csrc/lstm_bwd.cu;
+   then the peak device memory of one bf16 step at B=64, T=600, which
+   must stay below the device feed's reserve (FEED_RESERVE_BYTES).
+6. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
+   upload of its f32 and bf16 tables (GB/s over the f32 bytes that cross
+   the link, twice each, and the reference corpus's ~36 M frames
+   extrapolated from it); the gather of one batch at B=16 and 32,
+   T_pad=600, against SequenceBatcher._make_batch plus pageable copies
+   of the same indices (bit-equal); the rotating feed over 1,200 of its
+   utterances under a small RSRGAN_FEED_HBM_BUDGET (>= 3 shards,
+   prefetch on, block 1, two passes, each residency's gathers queued
+   behind a device sleep), every gathered batch bit-equal to the host
+   batch of its shard's StoreView batcher.
+7. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
    path: its launch count is reset before and read after), and f32 runs
@@ -61,6 +82,7 @@ of the repository beside it, it fails and prints no result.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -804,15 +826,18 @@ def phase_grad() -> dict:
 
 
 def write_corpus(data_dir: str, rng) -> tuple:
-    """64 train and 16 cv utterances (257 -> 40) in four length buckets
-    of 16, so every batch holds 16 rows; plus train_cmvn.npz."""
+    """128 train utterances (257 -> 40) in four length buckets of 32, so
+    an epoch at B=16 has two batches per bucket, which the shuffle
+    interleaves (the JAX CLI's update order then differs from the
+    batcher's); 16 cv utterances in one bucket; train_cmvn.npz."""
     from rsrgan_tpu_torch.data import StoreWriter
     lists = {}
-    for name, buckets in (("train", (150, 300, 400, 550)), ("cv", (350,))):
+    for name, buckets, per in (("train", (150, 300, 400, 550), 32),
+                               ("cv", (350,), 16)):
         path = os.path.join(data_dir, f"{name}.rtu")
         with StoreWriter(path) as store:
             for b, lo in enumerate(buckets):
-                for i in range(16):
+                for i in range(per):
                     n = int(rng.integers(lo, lo + 50))
                     store.add(f"{name}{b}_{i:02d}",
                               rng.normal(size=(n, P)).astype(np.float32),
@@ -965,9 +990,74 @@ def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
             "top_kernels_ms": top}
 
 
+def step_peak_bytes(tr_list: str, rows: int) -> int:
+    """Device bytes one bf16 train step at ``rows`` (the store's longest
+    utterances, T=600) allocates at its peak, the model and its optimizer
+    state included: what the device feed's budget must leave free."""
+    import gc
+
+    import torch
+    from rsrgan_tpu_torch.data import UtteranceStore, read_list_file
+    from rsrgan_tpu_torch.models import get_discriminator, get_generator
+    from rsrgan_tpu_torch.training import GanTrainer, default_hparams
+    store = UtteranceStore(read_list_file(tr_list))
+    arrays = longest_utterances(store, rows)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(41)
+    trainer = GanTrainer(
+        get_generator("res_lstm_l", input_dim=P, output_dim=OUT,
+                      compute_dtype=torch.bfloat16, generator=gen).cuda(),
+        get_discriminator("lstm", input_dim=OUT,
+                          compute_dtype=torch.bfloat16,
+                          lstm_impl="wavefront", generator=gen).cuda(),
+        output_dim=OUT, input_dim=P, l2_scale=1e-5)
+    state = trainer.init_state()
+    trainer.train_step(state, *(torch.from_numpy(a).cuda() for a in arrays),
+                       default_hparams())
+    torch.cuda.synchronize()
+    return int(torch.cuda.max_memory_allocated() - base)
+
+
+def cli_epoch(train_cli, counters, flags) -> tuple:
+    """One CLI training epoch with every launch count set to 0 just
+    before it; (its last train and eval metrics rows, the counts, wall
+    seconds)."""
+    import torch
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.monotonic()
+    rc = train_cli.main(flags)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = {name: getattr(fn, attr)
+                for name, (fn, attr) in counters.items()}
+    if rc != 0:
+        raise RuntimeError(f"training {flags[-3:]} returned {rc}")
+    save_dir = next(f.split("=", 1)[1] for f in flags
+                    if f.startswith("--save_dir="))
+    rows = []
+    for split in ("train", "eval"):
+        with open(os.path.join(save_dir, f"metrics_{split}.jsonl")) as f:
+            rows.append(json.loads(f.readlines()[-1]))
+    return rows[0], rows[1], launches, secs
+
+
+def on_kernel_routes(launches: dict) -> bool:
+    """The flagship step's routes at B=16: K4 train mode, K1, K2 and K3's
+    row-group walk, none of it on csrc/lstm_bwd.cu."""
+    return (all(launches[k] > 0 for k in ("wavefront_fwd_train", "lstm_fwd",
+                                           "lstm_bwd", "lstm_bwd_acc"))
+            and launches["lstm_bwd_acc_streaming"] == 0)
+
+
 def phase_train(work: str) -> dict:
-    """One epoch of the flagship LSGAN step through the CLI on the default
-    bf16 kernel path, decode from its checkpoint, and the f32 parity."""
+    """The flagship LSGAN epoch through the CLI: host-fed and device-fed
+    (the main path, bit-equal to the host-fed one), graph-fed and
+    conditioned; decode from its checkpoint; the f32 parity; profiled
+    steps; the B=64 step's peak memory."""
     import torch
     from rsrgan_tpu_torch.cli import train as train_cli
     from rsrgan_tpu_torch.ops import lstm_seq as ls
@@ -978,7 +1068,6 @@ def phase_train(work: str) -> dict:
     data_dir = os.path.join(work, "train_data")
     os.makedirs(data_dir)
     tr_list, cv_list = write_corpus(data_dir, rng)
-    save_dir = os.path.join(work, "train_exp")
     # name -> (wrapper, its count); lstm_bwd_acc counts its three routes
     # apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu
     counters = {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train,
@@ -991,30 +1080,62 @@ def phase_train(work: str) -> dict:
                 "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc,
                                            "streaming_launches"),
                 "wavefront_fwd": (wf.lstm_wavefront_fwd, "launches")}
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
-    t0 = time.monotonic()
-    rc = train_cli.main(["--trainer=gan_rnn", "--g_type=res_lstm_l",
-                         "--batch_size=16", "--min_epoches=1",
-                         "--max_epoches=1", f"--input_dim={P}",
-                         f"--output_dim={OUT}", f"--data_dir={data_dir}",
-                         f"--tr_list_file={tr_list}",
-                         f"--cv_list_file={cv_list}",
-                         f"--save_dir={save_dir}", "--seed=5"])
-    torch.cuda.synchronize()
-    secs = time.monotonic() - t0
-    launches = {name: getattr(fn, attr)
-                for name, (fn, attr) in counters.items()}
-    if rc != 0:
-        raise RuntimeError(f"training returned {rc}")
-    with open(os.path.join(save_dir, "metrics_train.jsonl")) as f:
-        row = json.loads(f.readlines()[-1])
-    with open(os.path.join(save_dir, "metrics_eval.jsonl")) as f:
-        cv_row = json.loads(f.readlines()[-1])
-    losses = {k: v for k, v in {**row, **{"cv_" + k: v for k, v in
-                                          cv_row.items()}}.items()
-              if k.endswith("loss")}
+
+    def flags(tag, *extra):
+        return ["--trainer=gan_rnn", "--g_type=res_lstm_l",
+                "--batch_size=16", "--min_epoches=1", "--max_epoches=1",
+                f"--input_dim={P}", f"--output_dim={OUT}",
+                f"--data_dir={data_dir}", f"--tr_list_file={tr_list}",
+                f"--cv_list_file={cv_list}", "--seed=5", *extra,
+                f"--save_dir={os.path.join(work, tag)}"]
+
+    def losses_of(row, cv_row):
+        return {k: v for k, v in {**row, **{"cv_" + k: v for k, v in
+                                            cv_row.items()}}.items()
+                if k.endswith("loss")}
+
+    # the two feeds in turns (host, device, device, host): the first run
+    # also pays the kernels' first launches. The second is the main
+    # path: the default flags, which on a card feed from the resident
+    # tables (--device_feed=auto).
+    runs = {}
+    for tag in ("host", "train_exp", "device_2", "host_2"):
+        extra = ("--device_feed=off",) if tag.startswith("host") else ()
+        runs[tag] = cli_epoch(train_cli, counters, flags(tag, *extra))
+    row, cv_row, launches, secs = runs["train_exp"]
+    save_dir = os.path.join(work, "train_exp")
+    losses = losses_of(row, cv_row)
     ckpt = latest_checkpoint(save_dir, "GAN_RNN")
+    with open(ckpt, "rb") as f:
+        main_bytes = f.read()
+    feeds_equal = True
+    for tag, (t_row, t_cv, _, _) in runs.items():
+        other = latest_checkpoint(os.path.join(work, tag), "GAN_RNN")
+        with open(other, "rb") as f:
+            feeds_equal = (feeds_equal and f.read() == main_bytes
+                           and losses_of(t_row, t_cv) == losses)
+
+    def speed(r):
+        return {"train_frames_per_s": r["train_frames_per_sec"],
+                "ms_per_iteration": 1e3 * r["train_secs"]
+                / r["train_steps"], "steps": r["train_steps"]}
+
+    feed_speeds = {tag: speed(r[0]) for tag, r in runs.items()}
+    emit({"phase": "train_feeds", "B": B, "order": list(runs),
+          "speed": feed_speeds, "bit_equal": feeds_equal,
+          "name, power.limit": card_name_and_limit()})
+
+    variants = {}
+    for tag, extra in (("graph_fed", "--same_batch=false"),
+                       ("d_conditioned", "--d_conditioned=true")):
+        v_row, v_cv, v_launches, _ = cli_epoch(train_cli, counters,
+                                               flags(tag, extra))
+        v_losses = losses_of(v_row, v_cv)
+        variants[tag] = {"losses": v_losses, "launches": v_launches,
+                         "steps": v_row["train_steps"],
+                         "ok": (on_kernel_routes(v_launches)
+                                and all(np.isfinite(x)
+                                        for x in v_losses.values()))}
 
     rc = train_cli.main(["--decode", "--trainer=gan_rnn",
                          "--g_type=res_lstm_l", "--decode_batch_size=16",
@@ -1029,8 +1150,6 @@ def phase_train(work: str) -> dict:
                          for m in ark.values()))
     parity = train_step_parity(tr_list)
     profile = profile_train_step(tr_list, B, counters)
-    main_path = ("wavefront_fwd_train", "lstm_fwd", "lstm_bwd",
-                 "lstm_bwd_acc")
     # the profiled step's D-step backward on K3's row-group kernels, and
     # none of it on csrc/lstm_bwd.cu (B=16: no G layer reaches K3)
     hand = profile["hand_kernels_ms"]
@@ -1045,20 +1164,219 @@ def phase_train(work: str) -> dict:
                    and runs32["lstm_bwd_acc_streaming"] == 0
                    and hand32[K3_WALK_BF16_KERNEL] > 0
                    and hand32["lstm_bwd_kernel"] == 0)
+    peak64 = step_peak_bytes(tr_list, 4 * B)
     out = {"phase": "train", "seconds": secs, "launches": launches,
            "steps": row["train_steps"], "train_secs": row["train_secs"],
            "train_frames_per_s": row["train_frames_per_sec"],
            "ms_per_iteration": 1e3 * row["train_secs"] / row["train_steps"],
+           "feeds": feed_speeds, "feeds_bit_equal": feeds_equal,
            "losses": losses, "checkpoint": os.path.basename(ckpt or ""),
+           "variants": variants,
            "decode_ok": decode_ok, "parity_f32": parity,
            "profile_bf16_step": profile, "k3_rowgroup_in_step": k3_rowgroup,
            "profile_bf16_step_b32": profile32,
            "k3_resident_in_b32_step": k3_resident,
-           "ok": (all(launches[k] > 0 for k in main_path)
-                  and launches["lstm_bwd_acc_streaming"] == 0 and k3_rowgroup
-                  and k3_resident
+           "step_peak_bytes_b64_t600": peak64,
+           "feed_reserve_bytes": train_cli.FEED_RESERVE_BYTES,
+           "ok": (on_kernel_routes(launches) and feeds_equal
+                  and all(v["ok"] for v in variants.values())
+                  and k3_rowgroup and k3_resident
                   and all(np.isfinite(v) for v in losses.values())
-                  and ckpt is not None and decode_ok and parity["ok"])}
+                  and ckpt is not None and decode_ok and parity["ok"]
+                  and peak64 < train_cli.FEED_RESERVE_BYTES)}
+    emit(out)
+    return out
+
+
+# The feed phase's corpus: about 2 GB of f32 tables (257 + 40 columns),
+# utterances of 150-600 frames; the reference's training set (~100 h) is
+# ~36 M frames, which the upload rate is extrapolated to.
+FEED_FRAMES = 1_700_000
+REFERENCE_FRAMES = 36_000_000
+# Rotation: a slice of the corpus cut into at least 3 shards by the
+# budget, two passes with prefetch; each residency's gathers queue behind
+# a device sleep, so an upload that did not wait for them would overwrite
+# rows they still have to read.
+ROTATION_UTTS = 1200
+ROTATION_SLEEP_CYCLES = 200_000_000
+
+
+def write_feed_corpus(data_dir: str, seed: int) -> tuple:
+    """A seeded store of about FEED_FRAMES frames, plus a 16-utterance cv
+    store; their list files."""
+    from rsrgan_tpu_torch.data import StoreWriter
+    rng = np.random.default_rng(seed)
+    lists, frames = {}, 0
+    for name in ("feed_tr", "feed_cv"):
+        path = os.path.join(data_dir, f"{name}.rtu")
+        with StoreWriter(path) as w:
+            i = 0
+            while (frames < FEED_FRAMES if name == "feed_tr" else i < 16):
+                n = int(rng.integers(150, 601))
+                w.add(f"{name}{i:05d}",
+                      rng.standard_normal((n, P), dtype=np.float32),
+                      rng.standard_normal((n, OUT), dtype=np.float32))
+                frames += n if name == "feed_tr" else 0
+                i += 1
+        lists[name] = os.path.join(data_dir, f"{name}.list")
+        with open(lists[name], "w") as f:
+            f.write(path + "\n")
+    return lists["feed_tr"], lists["feed_cv"]
+
+
+def host_batch_ms(batcher, indices, device, reps: int) -> tuple:
+    """The host feed's cost of one batch: SequenceBatcher._make_batch and
+    the pageable copies of its three arrays, to a synchronise (ms, the
+    last batch)."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t0 = time.monotonic()
+        batch = batcher._make_batch(indices)
+        on_dev = [torch.from_numpy(a).to(device)
+                  for a in (batch.inputs, batch.labels, batch.lengths)]
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return float(np.median(times)), on_dev
+
+
+def rotation_check(store, cv_store, device) -> dict:
+    """The CLI's rotating feed on ROTATION_UTTS utterances: a budget in
+    RSRGAN_FEED_HBM_BUDGET that cuts them into >= 3 shards, decided by
+    decide_device_feed as the CLI decides it, prefetch on, block 1, two
+    passes; every gathered batch of every residency against the host
+    batch of that shard's StoreView batcher, bit for bit."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.data import SequenceBatcher, StoreView
+    from rsrgan_tpu_torch.data.device_feed import (RotatingDeviceFeed,
+                                                   table_bytes)
+    from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
+    view = StoreView(store, np.arange(ROTATION_UTTS))
+    cv_bytes = table_bytes(cv_store, 4)
+    # two buffers of a quarter of the slice each: four or five shards
+    budget = cv_bytes + table_bytes(view, 4) // 2
+    args = train_cli.build_parser().parse_args(
+        ["--device_feed=on", "--device_feed_dtype=float32",
+         "--feed_prefetch=true"])
+    old = os.environ.get("RSRGAN_FEED_HBM_BUDGET")
+    os.environ["RSRGAN_FEED_HBM_BUDGET"] = str(budget)
+    try:
+        plan = train_cli.decide_device_feed(args, view, cv_store, device)
+    finally:
+        if old is None:
+            del os.environ["RSRGAN_FEED_HBM_BUDGET"]
+        else:
+            os.environ["RSRGAN_FEED_HBM_BUDGET"] = old
+    feed = RotatingDeviceFeed(view, plan.dtype, plan.budget - cv_bytes,
+                              device, seed=5, prefetch=True)
+    def make_batcher(shard):
+        # the CLI's rule: ragged batches where a shard has no full one
+        b = SequenceBatcher(shard, B, seed=5)
+        return (b if b.num_batches() else
+                SequenceBatcher(shard, B, seed=5, drop_remainder=False))
+
+    batchers = [make_batcher(StoreView(view, s)) for s in feed.shards]
+    visits = feed.schedule(2, 1, seed=5)
+    gathered = []
+    t0 = time.monotonic()
+    for r, (k, _) in enumerate(visits):
+        feed.ensure_resident(k)
+        if r + 1 < len(visits):
+            feed.start_prefetch(visits[r + 1][0])
+        torch.cuda._sleep(ROTATION_SLEEP_CYCLES)
+        for indices in batchers[k].iter_index_batches():
+            st, le = feed.plan(indices)
+            x, y = assemble_sequence_batch(
+                feed.inputs_tbl, feed.labels_tbl,
+                torch.from_numpy(st).to(device),
+                torch.from_numpy(le).to(device),
+                train_cli.plan_key(le, batchers[k].num_buckets)[0], 0, 0)
+            gathered.append((k, indices, x, y))
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    mismatched = 0
+    for k, indices, x, y in gathered:
+        host = batchers[k]._make_batch(indices)
+        mismatched += int(not (
+            np.array_equal(x.cpu().numpy(), host.inputs)
+            and np.array_equal(y.cpu().numpy(), host.labels)))
+    return {"shards": feed.num_shards, "residencies": len(visits),
+            "rotate": plan.rotate, "budget_bytes": budget,
+            "batches": len(gathered), "mismatched": mismatched,
+            "uploads": feed.uploads, "upload_secs": feed.upload_secs,
+            "seconds": secs,
+            "ok": (plan.rotate and feed.num_shards >= 3 and mismatched == 0
+                   and len({k for k, *_ in gathered}) == feed.num_shards)}
+
+
+def phase_feed(work: str) -> dict:
+    """The device feed at the scale of a real corpus: upload rates of f32
+    and bf16 tables (and the reference corpus's upload, extrapolated), the
+    gather of one batch at B=16 and 32, T_pad=600, against the host
+    batch, and the rotating feed bit-equal to the host batches."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.data import (SequenceBatcher, UtteranceStore,
+                                       read_list_file)
+    from rsrgan_tpu_torch.data.device_feed import DeviceFeed, table_bytes
+    from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
+    device = torch.device("cuda")
+    data_dir = os.path.join(work, "feed_data")
+    os.makedirs(data_dir)
+    t0 = time.monotonic()
+    tr_list, cv_list = write_feed_corpus(data_dir, 17)
+    store = UtteranceStore(read_list_file(tr_list))
+    cv_store = UtteranceStore(read_list_file(cv_list))
+    write_secs = time.monotonic() - t0
+    frames = int(store.lengths.sum())
+    host_bytes = table_bytes(store, 4)   # what crosses the link, f32 rows
+
+    uploads = {}
+    feed = None
+    for dtype_name in ("bfloat16", "float32"):
+        secs = []
+        for _ in range(2):
+            feed = None
+            torch.cuda.empty_cache()
+            t1 = time.monotonic()
+            feed = DeviceFeed(store, getattr(torch, dtype_name), device)
+            secs.append(time.monotonic() - t1)
+        uploads[dtype_name] = {
+            "seconds": secs, "table_bytes": feed.num_bytes,
+            "host_gb_per_s": [host_bytes / s / 1e9 for s in secs],
+            "extrapolated_reference_upload_s": (
+                REFERENCE_FRAMES / frames * min(secs))}
+    # feed holds the f32 tables now
+    batcher = SequenceBatcher(store, B, seed=0)
+    # lengths 551-599 pad to 600 (600 itself opens the next bucket)
+    long_ix = [int(i) for i in np.flatnonzero(
+        (store.lengths > 550) & (store.lengths < 600))]
+    gather, equal = {}, len(long_ix) >= 2 * B
+    for rows in (B, 2 * B):
+        indices = long_ix[:rows]
+        st, le = feed.plan(indices)
+        st_d, le_d = (torch.from_numpy(a).to(device) for a in (st, le))
+        run = lambda: assemble_sequence_batch(  # noqa: E731
+            feed.inputs_tbl, feed.labels_tbl, st_d, le_d, 600, 0, 0)
+        x, y = run()
+        host_ms, (hx, hy, _) = host_batch_ms(batcher, indices, device, 5)
+        equal = equal and torch.equal(x, hx) and torch.equal(y, hy)
+        gather[rows] = {"gather_us": 1e3 * cuda_time_ms(run, 50),
+                        "host_batch_ms": host_ms, "T_pad": 600,
+                        "bytes_out": (x.numel() + y.numel()) * 4}
+    feed = None
+    torch.cuda.empty_cache()
+    rotation = rotation_check(store, cv_store, device)
+    secs = time.monotonic() - t0
+    shutil.rmtree(data_dir)
+    out = {"phase": "feed", "frames": frames, "utterances": len(store),
+           "f32_table_bytes": host_bytes, "corpus_write_secs": write_secs,
+           "upload": uploads, "gather": gather, "gather_equals_host": equal,
+           "rotation": rotation, "seconds": secs,
+           "default_budget_bytes": train_cli.default_feed_budget(device),
+           "name, power.limit": card_name_and_limit(),
+           "ok": equal and rotation["ok"]}
     emit(out)
     return out
 
@@ -1069,7 +1387,6 @@ def read_ark(scp_path: str) -> dict:
 
 
 def phase_decode(work: str) -> dict:
-    import shutil
 
     import torch
     from rsrgan_tpu_torch.cli import train as train_cli
@@ -1151,7 +1468,8 @@ def card_name_and_limit() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-PHASES = ("build", "kernel", "kernels_train", "grad", "train", "decode")
+PHASES = ("build", "kernel", "kernels_train", "grad", "train", "feed",
+          "decode")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -1222,7 +1540,8 @@ def kernels_line(results: dict) -> dict:
                         "one profiled train step at B=32")
             else:
                 runs = (epoch[key[0]],
-                        "train epoch at B=16 (4 iterations, cv pass)")
+                        "train epoch at B=16, device feed (8 iterations, "
+                        "cv pass)")
             entries.append(kernel_entry(label, source, replaces, *runs, r,
                                         r))
     return {"kernels": entries}
@@ -1268,6 +1587,8 @@ def main(argv=None) -> int:
         if "train" in phases:
             results["train"] = phase_train(work)
             oks.append(results["train"]["ok"])
+        if "feed" in phases:
+            oks.append(phase_feed(work)["ok"])
         if "decode" in phases:
             results["decode"] = phase_decode(work)
             oks.append(results["decode"]["ok"])

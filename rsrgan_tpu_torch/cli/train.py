@@ -4,11 +4,19 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
 ``--device`` (default ``cuda``; it raises when there is no card unless
 ``--device=cpu`` is given):
 
-* training for ``--trainer gan_rnn`` (the flagship LSGAN: 1 D + 2 G steps
-  per batch on the same batch, the host feed, CV eval, the
-  completed-epoch schedules, accept/reject, checkpoints and the
-  ``.meta.json`` sidecar in the JAX format, so either package resumes or
-  decodes the other's checkpoints);
+* training for ``--trainer gan_rnn`` (the flagship LSGAN): 1 D + 2 G
+  steps per batch on the same batch, or with ``--same_batch=false`` D and
+  G steps on successive batches (the graph-fed loop); ``--d_conditioned``;
+  CV eval, the completed-epoch schedules, accept/reject, checkpoints and
+  the ``.meta.json`` sidecar in the JAX format, so either package resumes
+  or decodes the other's checkpoints. Batches run in the JAX CLI's update
+  order (``dispatch_order``: same-shape groups of ``--steps_per_call``).
+  Their feed: ``--device_feed`` (auto: on where ``--device`` is a card)
+  keeps the corpus resident on the device and gathers each batch there
+  from a ``[B]`` plan, rotating resident shards (``--feed_rotation_block``,
+  ``--feed_prefetch``) when the tables exceed ``RSRGAN_FEED_HBM_BUDGET``;
+  otherwise, and for the graph-fed loop, a prefetch thread builds host
+  batches;
 * ``--decode`` for the sequence trainers (``--trainer gan_rnn|rnn``): G
   forward, CMVN denormalisation, Kaldi feats.ark/feats.scp.
 
@@ -34,15 +42,22 @@ import glob
 import json
 import os
 import sys
+import time
+from typing import (Dict, Hashable, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from rsrgan_tpu_torch.cli import str2bool
-from rsrgan_tpu_torch.data import (ArkWriter, SequenceBatcher,
-                                   UtteranceStore, infer_batches,
-                                   load_cmvn_npz, read_list_file,
+from rsrgan_tpu_torch.data import (ArkWriter, SequenceBatcher, StoreView,
+                                   ThreadedPrefetcher, UtteranceStore,
+                                   bucket_id, infer_batches, load_cmvn_npz,
+                                   padded_length, read_list_file,
                                    splice_frames_np)
+from rsrgan_tpu_torch.data.device_feed import (DeviceFeed,
+                                               RotatingDeviceFeed,
+                                               table_bytes)
 from rsrgan_tpu_torch.models import (get_discriminator, get_generator,
                                      load_flax_params)
 from rsrgan_tpu_torch.training import (GanTrainer, ImprovementTracker,
@@ -230,10 +245,11 @@ def _fmt(metrics: dict, keys) -> str:
 
 
 def _avg(accum: list) -> dict:
-    """Mean of the per-batch metrics, read back from the device once."""
+    """Per-step mean of the metrics, read back from the device in one
+    copy."""
     keys = list(accum[0])
-    vals = torch.stack([torch.stack([torch.as_tensor(m[k]).float().cpu()
-                                     for k in keys]) for m in accum])
+    vals = torch.stack([torch.stack([torch.as_tensor(m[k]).float()
+                                     for k in keys]) for m in accum]).cpu()
     return {k: float(v) for k, v in zip(keys, vals.mean(0).tolist())}
 
 
@@ -253,7 +269,9 @@ def build_trainer(args, device, compute_dtype) -> GanTrainer:
                       output_dim=args.output_dim,
                       compute_dtype=compute_dtype, lstm_impl=impl,
                       generator=gen)
-    d = get_discriminator("lstm", input_dim=args.output_dim,
+    # a conditioned D sees the center input frame beside its target
+    d_in = args.output_dim + (args.input_dim if args.d_conditioned else 0)
+    d = get_discriminator("lstm", input_dim=d_in,
                           keep_prob=args.keep_prob,
                           compute_dtype=compute_dtype, lstm_impl=impl,
                           generator=gen)
@@ -266,20 +284,133 @@ def build_trainer(args, device, compute_dtype) -> GanTrainer:
                       d_optimizer="sgd", d_conditioned=args.d_conditioned)
 
 
+# What the device feed's default budget leaves free on the card for the
+# model, its optimizer state and the step's working set: the flagship
+# step's peak allocation at B=64, T=600 (chip_smoke.py's feed phase,
+# ``step_peak_bytes``) with headroom.
+FEED_RESERVE_BYTES = 8 * 1024 ** 3
+
+
+class FeedPlan(NamedTuple):
+    """Resolved device-feed configuration (decide_device_feed)."""
+    dtype: torch.dtype
+    rotate: bool
+    budget: int
+
+
+def default_feed_budget(device: torch.device) -> int:
+    """Bytes the feed's tables may take: the device's memory (the host's
+    for the CPU) less ``FEED_RESERVE_BYTES``."""
+    if device.type == "cuda":
+        total = torch.cuda.get_device_properties(device).total_memory
+    else:
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return total - FEED_RESERVE_BYTES
+
+
+def decide_device_feed(args, tr_store, cv_store,
+                       device: torch.device) -> Optional[FeedPlan]:
+    """Resolve --device_feed/--device_feed_dtype to a FeedPlan, or None for
+    the host feed (the JAX CLI's rule).
+
+    The gathered path covers the sequence trainers in a single process,
+    except the graph-fed GAN (--same_batch=false), which keeps the host
+    feed. ``auto`` turns it on where the run's device is a card, ``on``
+    on any device. Tables over the budget (RSRGAN_FEED_HBM_BUDGET, bytes;
+    default ``default_feed_budget``) drop to bfloat16, and bfloat16 tables
+    over it rotate resident shards (RotatingDeviceFeed).
+    """
+    if args.device_feed == "off":
+        return None
+    eligible = (args.trainer in ("gan_rnn", "rnn")
+                and (args.trainer != "gan_rnn" or args.same_batch))
+    if not eligible:
+        if args.device_feed == "on":
+            log("NOTE: --device_feed=on ignored (multi-host/graph-fed "
+                "runs use the host feed)")
+        return None
+    if args.device_feed == "auto" and device.type != "cuda":
+        return None
+    budget = float(os.environ.get("RSRGAN_FEED_HBM_BUDGET",
+                                  default_feed_budget(device)))
+    f32_bytes = table_bytes(tr_store, 4) + table_bytes(cv_store, 4)
+    if args.device_feed_dtype == "float32":
+        dtype = torch.float32
+    elif args.device_feed_dtype == "bfloat16":
+        dtype = torch.bfloat16
+    elif f32_bytes <= budget:
+        dtype = torch.float32
+    else:
+        log(f"[*] device feed: f32 tables ({f32_bytes / 1e9:.1f} GB) exceed "
+            f"the device budget ({budget / 1e9:.1f} GB); using bfloat16 "
+            "tables")
+        dtype = torch.bfloat16
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    need = table_bytes(tr_store, itemsize) + table_bytes(cv_store, itemsize)
+    rotate = need > budget
+    if rotate:
+        log(f"[*] device feed: {str(dtype).split('.')[-1]} tables "
+            f"({need / 1e9:.1f} GB) exceed the device budget "
+            f"({budget / 1e9:.1f} GB); rotating resident shards")
+    return FeedPlan(dtype, rotate, int(budget))
+
+
+def plan_key(lengths: np.ndarray, num_buckets: int) -> Tuple[int, int]:
+    """(t_pad, rows) of a batch plan: the shape its batch is padded to."""
+    mx = int(lengths.max())
+    return padded_length(bucket_id(mx, num_buckets), mx, num_buckets), \
+        len(lengths)
+
+
+def dispatch_order(keys: Sequence[Hashable],
+                   steps_per_call: int) -> List[int]:
+    """Positions of an epoch's batches in the order the JAX CLI updates on
+    them: batches wait by shape key; a key's group runs (in arrival order)
+    when ``steps_per_call`` are waiting; what is left runs at the end,
+    group by group in the order the waiting keys were inserted. The JAX
+    CLI dispatches a full group as one multi-step scan, the port as that
+    many steps; the optimisation order is the same."""
+    pending: Dict[Hashable, List[int]] = {}
+    order: List[int] = []
+    for i, key in enumerate(keys):
+        pending.setdefault(key, []).append(i)
+        if len(pending[key]) == steps_per_call:
+            order.extend(pending.pop(key))
+    for group in pending.values():
+        order.extend(group)
+    return order
+
+
+def dispatch_plans(batchers, steps_per_call: int
+                   ) -> List[Tuple[List[int], int]]:
+    """(indices, t_pad) of every batch plan of ``batchers`` (one pass each,
+    in turn) in dispatch order."""
+    plans = [(b, ix) for b in batchers for ix in b.iter_index_batches()]
+    keys = [plan_key(b.lengths[ix], b.num_buckets) for b, ix in plans]
+    return [(plans[i][1], keys[i][0])
+            for i in dispatch_order(keys, steps_per_call)]
+
+
+def plan_to_device(starts: np.ndarray, lengths: np.ndarray,
+                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One [B] plan to the device through a small pinned buffer, without
+    waiting for the copy (the caching host allocator keeps the buffer
+    until the copy has read it)."""
+    host = torch.from_numpy(np.stack([starts, lengths]).astype(np.int32))
+    if device.type == "cuda":
+        host = host.pin_memory()
+    dev = host.to(device, non_blocking=True)
+    return dev[0], dev[1]
+
+
 def run_sequence_training(args) -> int:
-    """The host-feed sequence GAN loop of the JAX CLI
-    (``run_sequence_training``) for --trainer=gan_rnn --same_batch."""
+    """The sequence GAN loop of the JAX CLI (``run_sequence_training``)
+    for --trainer=gan_rnn: the device feed (resident or rotating tables),
+    the graph-fed loop (--same_batch=false) or the host feed."""
     if args.trainer != "gan_rnn":
         raise NotImplementedError(
             f"training (--trainer={args.trainer}) is not ported yet; "
             f"{_ROADMAP}, 'MSE and frame trainers'")
-    if not args.same_batch:
-        raise NotImplementedError(
-            "--same_batch=false (D and G on different batches) is not "
-            f"ported yet; {_ROADMAP}, item 3")
-    if args.device_feed == "on":
-        raise NotImplementedError(
-            f"--device_feed=on is not ported yet; {_ROADMAP}, item 4")
     if args.num_gpu > 1:
         raise NotImplementedError(
             f"--num_gpu={args.num_gpu} (data-parallel training) is not "
@@ -329,6 +460,56 @@ def run_sequence_training(args) -> int:
     tracker = ImprovementTracker(args.end_improve)
     noise = torch.Generator(device=device).manual_seed(args.seed + 1)
     os.makedirs(args.save_dir, exist_ok=True)
+    steps_per_call = max(1, args.steps_per_call)
+    left, right = args.left_context, args.right_context
+
+    feed_plan = decide_device_feed(args, tr_store, cv_store, device)
+    feed_tr = feed_cv = None
+    rotating = False
+    shard_batchers = visits = None
+    if feed_plan is not None:
+        t0 = time.monotonic()
+        dtype_name = str(feed_plan.dtype).split(".")[-1]
+        feed_cv = DeviceFeed(cv_store, feed_plan.dtype, device)
+        if feed_plan.rotate:
+            itemsize = torch.empty((), dtype=feed_plan.dtype).element_size()
+            tr_budget = feed_plan.budget - table_bytes(cv_store, itemsize)
+            feed_tr = RotatingDeviceFeed(
+                tr_store, feed_plan.dtype, tr_budget, device,
+                seed=args.seed, prefetch=args.feed_prefetch)
+            rotating = True
+            shard_batchers = [make_batcher(StoreView(tr_store, s), True)
+                              for s in feed_tr.shards]
+            visits = feed_tr.schedule(max_iters, args.feed_rotation_block,
+                                      seed=args.seed)
+            log(f"[*] device feed: rotating {feed_tr.num_shards} shards "
+                f"(<= {feed_tr.max_rows} frames each, "
+                f"{feed_tr.num_bytes / 1e9:.2f} GB of {dtype_name} "
+                f"buffers), {len(visits)} residencies x "
+                f"<= {args.feed_rotation_block} passes"
+                f"{', async prefetch' if args.feed_prefetch else ''}")
+        else:
+            feed_tr = DeviceFeed(tr_store, feed_plan.dtype, device)
+            log(f"[*] device feed: "
+                f"{(feed_tr.num_bytes + feed_cv.num_bytes) / 1e9:.2f} GB "
+                f"resident ({dtype_name} tables) uploaded in "
+                f"{time.monotonic() - t0:.1f} s")
+
+    # Rotation makes one loop iteration a shard residency (block passes
+    # over one shard); schedules and stop conditions then advance by
+    # effective epochs = completed passes / num_shards, so lr decay and
+    # min/max-epoch semantics stay in corpus-epoch units.
+    n_iterations = len(visits) if rotating else max_iters
+    min_stop_iters = min_iters
+    if rotating:
+        cum = 0
+        min_stop_iters = n_iterations
+        for i, (_, p) in enumerate(visits):
+            cum += p
+            if cum >= min_iters * feed_tr.num_shards:
+                min_stop_iters = i + 1
+                break
+    eff_epoch = 0.0
 
     def on_device(batch):
         return (torch.from_numpy(batch.inputs).to(device),
@@ -339,23 +520,78 @@ def run_sequence_training(args) -> int:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for iteration in range(max_iters):
+    for iteration in range(n_iterations):
         start = datetime.datetime.now()
         tr_accum, cv_accum = [], []
         true_frames = 0
-        for batch in tr_batches:
-            true_frames += int(batch.lengths.sum())
-            tr_accum.append(trainer.train_step(state, *on_device(batch), hp,
-                                               noise))
-        if not tr_accum:
+        if feed_tr is not None:
+            if rotating:
+                shard_k, n_passes = visits[iteration]
+                feed_tr.ensure_resident(shard_k)
+                if args.feed_prefetch and iteration + 1 < len(visits):
+                    feed_tr.start_prefetch(visits[iteration + 1][0])
+                batchers = [shard_batchers[shard_k]] * n_passes
+                eff_epoch += n_passes / feed_tr.num_shards
+            else:
+                batchers = [tr_batches]
+                eff_epoch += 1.0
+            for indices, t_pad in dispatch_plans(batchers, steps_per_call):
+                st, le = feed_tr.plan(indices)
+                true_frames += int(le.sum())
+                tr_accum.append(trainer.train_step_gathered(
+                    state, feed_tr.inputs_tbl, feed_tr.labels_tbl,
+                    *plan_to_device(st, le, device), hp, noise, t_pad,
+                    left, right))
+            tr_m = _avg(tr_accum) if tr_accum else None
+        elif not args.same_batch:
+            # graph-fed: D and G steps on successive minibatches of the
+            # stream, until it runs out (wherever that falls)
+            d_accum, g_accum = [], []
+            stream = iter(ThreadedPrefetcher(iter(tr_batches), 32))
+            try:
+                while True:
+                    for _ in range(args.disc_updates):
+                        batch = next(stream)
+                        true_frames += int(batch.lengths.sum())
+                        d_accum.append(trainer.d_step(
+                            state, *on_device(batch), hp, noise))
+                    for _ in range(args.gen_updates):
+                        batch = next(stream)
+                        true_frames += int(batch.lengths.sum())
+                        g_accum.append(trainer.g_step(
+                            state, *on_device(batch), hp, noise))
+            except StopIteration:
+                pass
+            tr_accum = d_accum + g_accum
+            tr_m = ({**_avg(d_accum), **_avg(g_accum)}
+                    if d_accum and g_accum else None)
+        else:
+            plans = dispatch_plans([tr_batches], steps_per_call)
+            for batch in ThreadedPrefetcher(
+                    (tr_batches._make_batch(ix) for ix, _ in plans), 32):
+                true_frames += int(batch.lengths.sum())
+                tr_accum.append(trainer.train_step(
+                    state, *on_device(batch), hp, noise))
+            tr_m = _avg(tr_accum) if tr_accum else None
+        if tr_m is None:
             log("ERROR: empty train batch stream")
             return 1
-        tr_m = _avg(tr_accum)  # reads the metrics back: the device is done
-        sync()
+        sync()   # _avg read the metrics back; the train section is done
         train_secs = (datetime.datetime.now() - start).total_seconds()
-        for batch in cv_batches:
-            cv_accum.append(trainer.eval_step(state, *on_device(batch), hp,
-                                              noise))
+        if feed_cv is not None:
+            for indices, t_pad in dispatch_plans([cv_batches],
+                                                 steps_per_call):
+                st, le = feed_cv.plan(indices)
+                cv_accum.append(trainer.eval_step_gathered(
+                    state, feed_cv.inputs_tbl, feed_cv.labels_tbl,
+                    *plan_to_device(st, le, device), hp, noise, t_pad,
+                    left, right))
+        else:
+            plans = dispatch_plans([cv_batches], steps_per_call)
+            for batch in ThreadedPrefetcher(
+                    (cv_batches._make_batch(ix) for ix, _ in plans), 32):
+                cv_accum.append(trainer.eval_step(
+                    state, *on_device(batch), hp, noise))
         if not cv_accum:
             log("ERROR: empty cv batch stream")
             return 1
@@ -367,34 +603,44 @@ def run_sequence_training(args) -> int:
             return 2
         took = (datetime.datetime.now() - start).total_seconds()
         fps = true_frames / max(train_secs, 1e-9)
-        log(f"{iteration + 1}/{max_iters} (INFO): d_learning_rate = "
+        rot_note = ""
+        if rotating:
+            rot_note = (f" [shard {visits[iteration][0]} x "
+                        f"{visits[iteration][1]} passes, epoch "
+                        f"{eff_epoch:.2f}, uploads {feed_tr.uploads} "
+                        f"({feed_tr.upload_secs:.0f} s total)]")
+        log(f"{iteration + 1}/{n_iterations} (INFO): d_learning_rate = "
             f"{hp['d_lr']:.5e}, g_learning_rate = {hp['g_lr']:.5e}, "
             f"time = {took / 3600.0:.3f} h\n"
-            f"{iteration + 1}/{max_iters} (SPEED): train_frames_per_sec "
+            f"{iteration + 1}/{n_iterations} (SPEED): train_frames_per_sec "
             f"= {fps:.0f} (true frames through the cli/train loop, "
             f"{train_secs:.1f} s train section, {len(tr_accum)} steps on "
-            f"{device})\n"
-            f"{iteration + 1}/{max_iters} (TRAIN AVG.LOSS): "
+            f"{device}){rot_note}\n"
+            f"{iteration + 1}/{n_iterations} (TRAIN AVG.LOSS): "
             f"{_fmt(tr_m, GAN_METRICS)}\n"
-            f"{iteration + 1}/{max_iters} (CROSS AVG.LOSS): "
+            f"{iteration + 1}/{n_iterations} (CROSS AVG.LOSS): "
             f"{_fmt(cv_m, GAN_METRICS)}")
-        _write_metrics(args.save_dir, "train", iteration + 1,
-                       {**tr_m, "train_frames_per_sec": fps,
-                        "train_secs": train_secs,
-                        "train_steps": len(tr_accum),
-                        "g_lr": hp["g_lr"], "d_lr": hp["d_lr"]})
+        tr_row = {**tr_m, "train_frames_per_sec": fps,
+                  "train_secs": train_secs, "train_steps": len(tr_accum),
+                  "g_lr": hp["g_lr"], "d_lr": hp["d_lr"]}
+        if rotating:
+            tr_row["eff_epoch"] = eff_epoch
+        _write_metrics(args.save_dir, "train", iteration + 1, tr_row)
         _write_metrics(args.save_dir, "eval", iteration + 1, cv_m)
 
         # the reference's staircase: epoch 1 at the initial values, epoch
-        # k >= 2 at decay(k - 1) on completed epochs
-        sched_t = iteration + 1
-        hp["g_lr"] = exponential_decay(sched_t, 1, min_iters,
-                                       args.g_learning_rate)
-        hp["d_lr"] = exponential_decay(sched_t, 1, min_iters,
-                                       args.d_learning_rate)
-        hp["disc_noise_std"] = exponential_decay(
-            sched_t, 1, min_iters, args.init_disc_noise_std,
-            multiply_jobs=False)
+        # k >= 2 at decay(k - 1) on completed epochs. Under rotation a
+        # residency can end mid-epoch, so the count is of whole effective
+        # epochs, and the initial values hold until the first completes.
+        sched_t = int(eff_epoch) if rotating else iteration + 1
+        if sched_t >= 1:
+            hp["g_lr"] = exponential_decay(sched_t, 1, min_iters,
+                                           args.g_learning_rate)
+            hp["d_lr"] = exponential_decay(sched_t, 1, min_iters,
+                                           args.d_learning_rate)
+            hp["disc_noise_std"] = exponential_decay(
+                sched_t, 1, min_iters, args.init_disc_noise_std,
+                multiply_jobs=False)
 
         tracker.add(cv_m["g_loss"])
         if tracker.check(iteration):
@@ -404,7 +650,7 @@ def run_sequence_training(args) -> int:
                 f"Save model SUCCESS.")
         else:
             log(f"Iteration {iteration + 1}: Nnet Rejected.")
-        if tracker.should_stop(iteration, min_iters):
+        if tracker.should_stop(iteration, min_stop_iters):
             log(f"Iteration {iteration + 1}: Finished, too small relative "
                 f"G improvement {tracker.rel_impr:g}")
             break
@@ -478,10 +724,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 matmul operands in the models (f32 "
                         "accumulation and state)")
     p.add_argument("--steps_per_call", type=int, default=8,
-                   help="accepted for the JAX CLI's flag set; no effect "
-                        "(it amortised jit dispatch)")
+                   help="same-shape batches the JAX CLI groups into one "
+                        "call; the port runs them as single steps in that "
+                        "order (the update order of the JAX CLI)")
     p.add_argument("--device_feed", default="auto",
-                   choices=["auto", "on", "off"])
+                   choices=["auto", "on", "off"],
+                   help="the corpus resident on the device, batches "
+                        "gathered there: auto = on where --device is a "
+                        "card; budget RSRGAN_FEED_HBM_BUDGET (bytes)")
     p.add_argument("--device_feed_dtype", default="auto",
                    choices=["auto", "float32", "bfloat16"])
     p.add_argument("--feed_rotation_block", type=int, default=1)

@@ -1,11 +1,14 @@
 """Sequence batches (numpy copy of ``rsrgan_tpu/data/dataset.py``:
-``bucket_id``, ``padded_length``, ``SequenceBatch``, ``SequenceBatcher``
-and ``infer_batches``). With the same seed the batcher gives the same
-batches as the JAX package's, in the same order. The frame batchers and
-the host-sharded views are not ported (ROADMAP.md, Queue 1)."""
+``bucket_id``, ``padded_length``, ``SequenceBatch``, ``SequenceBatcher``,
+``infer_batches`` and ``ThreadedPrefetcher``). With the same seed the
+batcher gives the same batches as the JAX package's, in the same order.
+The frame batchers and the host-sharded views are not ported (ROADMAP.md,
+Queue 1)."""
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional
 
@@ -82,6 +85,11 @@ class SequenceBatcher:
         self._rng = np.random.default_rng(seed)
         self._lengths = store.lengths
 
+    @property
+    def lengths(self) -> np.ndarray:
+        """The store's utterance lengths, indexed as the plans index."""
+        return self._lengths
+
     def num_batches(self) -> int:
         """Number of batches per epoch, from the index."""
         counts: Dict[int, int] = {}
@@ -136,3 +144,38 @@ class SequenceBatcher:
     def __iter__(self) -> Iterator[SequenceBatch]:
         for indices in self.iter_index_batches():
             yield self._make_batch(indices)
+
+
+class ThreadedPrefetcher:
+    """A producer thread filling a bounded queue from ``iterator``, the
+    reference's feeder pattern. An error raised by the producer is raised
+    to the consumer when it reaches that point of the stream, chained to
+    the original."""
+
+    _DONE = object()
+
+    def __init__(self, iterator, capacity: int = 32):
+        self._queue: "queue.Queue" = queue.Queue(capacity)
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, args=(iterator,), daemon=True)
+        self._thread.start()
+
+    def _run(self, iterator) -> None:
+        try:
+            for item in iterator:
+                self._queue.put(item)
+        except BaseException as e:  # surfaced to the consumer, not dropped
+            self._error = e
+        finally:
+            self._queue.put(self._DONE)
+
+    def __iter__(self):
+        while True:
+            item = self._queue.get()
+            if item is self._DONE:
+                if self._error is not None:
+                    raise RuntimeError(
+                        "prefetch producer failed") from self._error
+                return
+            yield item

@@ -129,3 +129,50 @@ def read_list_file(list_file: str) -> List[str]:
     """Read a newline-separated list of shard paths."""
     with open(list_file) as f:
         return [line.strip() for line in f if line.strip()]
+
+
+class StoreView:
+    """The utterances ``indices`` of a store, behind the store interface
+    ``SequenceBatcher`` and the device feed read (numpy copy of
+    ``rsrgan_tpu/data/store.py`` ``StoreView``). The rotating device feed
+    batches one resident shard at a time through one view a shard; views
+    share the parent's mmaps and cost only the index array."""
+
+    def __init__(self, store, indices):
+        self._store = store
+        self._ix = np.asarray(indices, dtype=np.int64)
+        self._lengths = store.lengths[self._ix]
+        ids = store.utt_ids
+        self._utt_ids = [ids[i] for i in self._ix]
+
+    def __len__(self) -> int:
+        return len(self._ix)
+
+    @property
+    def utt_ids(self) -> List[str]:
+        return self._utt_ids
+
+    @property
+    def lengths(self) -> np.ndarray:
+        return self._lengths
+
+    @property
+    def has_labels(self) -> bool:
+        return self._store.has_labels
+
+    @property
+    def input_dim(self) -> int:
+        return self._store.input_dim
+
+    @property
+    def output_dim(self) -> Optional[int]:
+        return self._store.output_dim
+
+    def inputs(self, i: int) -> np.ndarray:
+        return self._store.inputs(int(self._ix[i]))
+
+    def labels(self, i: int) -> Optional[np.ndarray]:
+        return self._store.labels(int(self._ix[i]))
+
+    def __getitem__(self, i: int):
+        return self._store[int(self._ix[i])]

@@ -1,12 +1,16 @@
-"""The flagship LSGAN train step (counterpart of
-``rsrgan_tpu/training/gan.py`` ``GanTrainer``, same-batch semantics).
+"""The flagship LSGAN trainer (counterpart of ``rsrgan_tpu/training/gan.py``
+``GanTrainer``).
 
 One ``train_step`` is ``disc_updates`` D steps then ``gen_updates`` G
-steps on one minibatch; every G step sees the D parameters the D steps
-produced. D uses SGD, G Adam; each gradient tensor is clipped to
-``max_grad_norm``; EMA decay 0.9999 on both nets. Losses: LSGAN with the
-soft labels d_real/d_fake, G loss = g_adv + mse_lambda * (0.5 * MSE *
-output_dim) + L2 of the non-bias G weights.
+steps on one minibatch (the placeholder trainer's same-batch semantics);
+every G step sees the D parameters the D steps produced. ``d_step`` and
+``g_step`` are one D update and one G update alone, which the graph-fed
+loop (``--same_batch=false``) runs on different minibatches. D uses SGD,
+G Adam; each gradient tensor is clipped to ``max_grad_norm``; EMA decay
+0.9999 on both nets. Losses: LSGAN with the soft labels d_real/d_fake, G
+loss = g_adv + mse_lambda * (0.5 * MSE * output_dim) + L2 of the non-bias
+G weights. With ``d_conditioned`` D sees the center input frame beside
+its target (``_d_input``).
 
 When G has no dropout (the flagship), the D steps' fake input and the
 first G step's forward are one computation: G runs forward once with its
@@ -14,7 +18,10 @@ autograd graph kept; the D steps take ``g_out.detach()``, and the first
 G step runs the D head with the updated D parameters and backpropagates
 through the kept G graph (the JAX ``jax.vjp`` sharing).
 
-State is updated in place (the JAX step returns a new state).
+``train_step_gathered`` and ``eval_step_gathered`` first assemble their
+batch on the device from resident tables and a ``[B]`` plan
+(``ops/gather.py``). State is updated in place (the JAX step returns a
+new state).
 """
 
 from __future__ import annotations
@@ -24,12 +31,11 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
 from rsrgan_tpu_torch.training.losses import (g_mse_loss, l2_loss_nonbias,
                                               lsgan_d_losses,
                                               lsgan_g_adv_loss)
 from rsrgan_tpu_torch.training.state import NetState
-
-_NOT_PORTED = "is not ported yet; see ROADMAP.md, Queue 1, item 3"
 
 
 def default_hparams() -> Dict[str, float]:
@@ -61,8 +67,6 @@ class GanTrainer:
                  max_grad_norm: Optional[float] = 15.0,
                  ema_decay: float = 0.9999, g_optimizer: str = "adam",
                  d_optimizer: str = "sgd", d_conditioned: bool = False):
-        if d_conditioned:
-            raise NotImplementedError(f"--d_conditioned {_NOT_PORTED}")
         self.generator = generator
         self.discriminator = discriminator
         self.output_dim = output_dim
@@ -73,6 +77,7 @@ class GanTrainer:
         self.l2_scale = l2_scale
         self.max_grad_norm = max_grad_norm
         self.ema_decay = ema_decay
+        self.d_conditioned = d_conditioned
         self.g_optimizer, self.d_optimizer = g_optimizer, d_optimizer
         self.grad_log: Optional[List[Tuple[str, dict]]] = None
 
@@ -84,15 +89,28 @@ class GanTrainer:
 
     # -- losses --------------------------------------------------------------
 
-    def _d_loss(self, fake, labels, lengths, hp, noise, train=True):
+    def _d_input(self, inputs, target):
+        """What D sees for a target (labels or G output): the target alone
+        (the flagship), or with ``d_conditioned`` the center frame of the
+        spliced input beside it."""
+        if not self.d_conditioned:
+            return target
+        start = self.input_dim * self.left_context
+        center = inputs[..., start:start + self.input_dim]
+        return torch.cat([center, target], dim=-1)
+
+    def _d_loss(self, fake, inputs, labels, lengths, hp, noise,
+                train=True):
         """D(real) and D(fake) as one forward of 2B rows (no cross-row
         coupling in D); per-half means after the split."""
         b = labels.shape[0]
         both = torch.cat([labels, fake], dim=0)
+        inputs2 = (torch.cat([inputs, inputs], dim=0)
+                   if self.d_conditioned else inputs)
         lengths2 = (torch.cat([lengths, lengths], dim=0)
                     if lengths is not None else None)
-        d_both = self.discriminator(both, lengths2, hp["disc_noise_std"],
-                                    train, noise)
+        d_both = self.discriminator(self._d_input(inputs2, both), lengths2,
+                                    hp["disc_noise_std"], train, noise)
         d_rl, d_fk = d_both[:b], d_both[b:]
         d_rl_loss, d_fk_loss, d_loss = lsgan_d_losses(
             d_rl, d_fk, hp["d_real"], hp["d_fake"])
@@ -100,12 +118,29 @@ class GanTrainer:
                    "d_loss": d_loss}
         return d_loss, metrics, d_fk
 
-    def _g_head(self, g_out, labels, lengths, hp, noise):
-        d_fk = self.discriminator(g_out, lengths, hp["disc_noise_std"],
-                                  True, noise)
+    def _g_head(self, g_out, inputs, labels, lengths, hp, noise):
+        d_fk = self.discriminator(self._d_input(inputs, g_out), lengths,
+                                  hp["disc_noise_std"], True, noise)
         adv = lsgan_g_adv_loss(d_fk, hp["d_real"])
         mse = g_mse_loss(g_out, labels, self.output_dim)
         return adv, mse
+
+    def _g_update(self, state: GanState, g_out, inputs, labels, lengths,
+                  hp, noise) -> Dict[str, torch.Tensor]:
+        """One G update from a G forward kept for autograd."""
+        adv, mse = self._g_head(g_out, inputs, labels, lengths, hp, noise)
+        l2 = l2_loss_nonbias(state.g.params(), self.l2_scale)
+        g_loss = adv + hp["mse_lambda"] * mse + l2
+        self._update("g", state.g, self._grads(g_loss, state.g), hp["g_lr"])
+        return {"g_adv_loss": adv.detach(), "g_mse_loss": mse.detach(),
+                "g_l2_loss": l2.detach(), "g_loss": g_loss.detach()}
+
+    def _d_update(self, state: GanState, fake, inputs, labels, lengths, hp,
+                  noise) -> Dict[str, torch.Tensor]:
+        """One D update against a detached G output."""
+        d_loss, m, _ = self._d_loss(fake, inputs, labels, lengths, hp, noise)
+        self._update("d", state.d, self._grads(d_loss, state.d), hp["d_lr"])
+        return {k: v.detach() for k, v in m.items()}
 
     def _grads(self, loss, net: NetState) -> Dict[str, torch.Tensor]:
         params = net.params()
@@ -139,27 +174,18 @@ class GanTrainer:
             else:
                 with torch.no_grad():
                     fake = self.generator(inputs, lengths, True)
-            d_loss, m, _ = self._d_loss(fake, labels, lengths, hp, noise)
-            self._update("d", state.d, self._grads(d_loss, state.d),
-                         hp["d_lr"])
+            m = self._d_update(state, fake, inputs, labels, lengths, hp,
+                               noise)
             for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach() \
-                    / self.disc_updates
+                metrics[k] = metrics.get(k, 0.0) + v / self.disc_updates
 
         for g_iter in range(self.gen_updates):
-            g_params = state.g.params()
             if not (share and g_iter == 0):
                 g_out = self.generator(inputs, lengths, True)
-            adv, mse = self._g_head(g_out, labels, lengths, hp, noise)
-            l2 = l2_loss_nonbias(g_params, self.l2_scale)
-            g_loss = adv + hp["mse_lambda"] * mse + l2
-            self._update("g", state.g, self._grads(g_loss, state.g),
-                         hp["g_lr"])
-            m = {"g_adv_loss": adv, "g_mse_loss": mse, "g_l2_loss": l2,
-                 "g_loss": g_loss}
+            m = self._g_update(state, g_out, inputs, labels, lengths, hp,
+                               noise)
             for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach() \
-                    / self.gen_updates
+                metrics[k] = metrics.get(k, 0.0) + v / self.gen_updates
         state.step += 1
         return metrics
 
@@ -169,6 +195,29 @@ class GanTrainer:
             return False
         return float(getattr(self.generator, "keep_prob", 1.0)) >= 1.0
 
+    def d_step(self, state: GanState, inputs, labels, lengths,
+               hp: Dict[str, float],
+               noise: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+        """One D update alone (the graph-fed trainer feeds D and G from
+        different minibatches): G forward in train mode, detached, then
+        the D step at 2B rows."""
+        with torch.no_grad():
+            fake = self.generator(inputs, lengths, True)
+        return self._d_update(state, fake, inputs, labels, lengths, hp,
+                              noise)
+
+    def g_step(self, state: GanState, inputs, labels, lengths,
+               hp: Dict[str, float],
+               noise: Optional[torch.Generator] = None
+               ) -> Dict[str, torch.Tensor]:
+        """One G update alone (graph-fed trainer semantics); counts a
+        step, as the JAX ``g_step`` does."""
+        g_out = self.generator(inputs, lengths, True)
+        m = self._g_update(state, g_out, inputs, labels, lengths, hp, noise)
+        state.step += 1
+        return m
+
     @torch.no_grad()
     def eval_step(self, state: GanState, inputs, labels, lengths,
                   hp: Dict[str, float],
@@ -176,26 +225,41 @@ class GanTrainer:
                   ) -> Dict[str, torch.Tensor]:
         """All losses, no updates (noise active, no activations kept)."""
         g_out = self.generator(inputs, lengths, False)
-        _, d_m, d_fk = self._d_loss(g_out, labels, lengths, hp, noise,
-                                    train=False)
+        _, d_m, d_fk = self._d_loss(g_out, inputs, labels, lengths, hp,
+                                    noise, train=False)
         adv = lsgan_g_adv_loss(d_fk, hp["d_real"])
         mse = g_mse_loss(g_out, labels, self.output_dim)
         return {**d_m, "g_adv_loss": adv, "g_mse_loss": mse,
                 "g_l2_loss": torch.zeros((), device=adv.device),
                 "g_loss": adv + hp["mse_lambda"] * mse}
 
-    def d_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the graph-fed D step (--same_batch=false) {_NOT_PORTED}")
+    def train_step_gathered(self, state: GanState, inputs_tbl, labels_tbl,
+                            starts, lengths, hp: Dict[str, float],
+                            noise: Optional[torch.Generator], t_pad: int,
+                            left: int, right: int
+                            ) -> Dict[str, torch.Tensor]:
+        """``train_step`` on the batch that ``starts``/``lengths`` ([B]
+        int32 on the tables' device) plan in the resident tables."""
+        x, y = assemble_sequence_batch(inputs_tbl, labels_tbl, starts,
+                                       lengths, t_pad, left, right)
+        return self.train_step(state, x, y, lengths, hp, noise)
 
-    def g_step(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"the graph-fed G step (--same_batch=false) {_NOT_PORTED}")
+    def eval_step_gathered(self, state: GanState, inputs_tbl, labels_tbl,
+                           starts, lengths, hp: Dict[str, float],
+                           noise: Optional[torch.Generator], t_pad: int,
+                           left: int, right: int
+                           ) -> Dict[str, torch.Tensor]:
+        """``eval_step`` on a batch assembled from the resident tables."""
+        x, y = assemble_sequence_batch(inputs_tbl, labels_tbl, starts,
+                                       lengths, t_pad, left, right)
+        return self.eval_step(state, x, y, lengths, hp, noise)
 
     def train_multi_step(self, *args, **kwargs):
         raise NotImplementedError(
-            "the train_multi_step* scans (jit-dispatch amortisation and the "
-            "device feed) are not ported: call train_step per batch; see "
-            "ROADMAP.md, Queue 1, item 4")
+            "the train_multi_step* scans are not ported: they amortised jit "
+            "dispatch over same-shape batches, which an eager step does not "
+            "need; call train_step (or train_step_gathered) per batch in "
+            "the same order")
 
     train_multi_step_gathered = train_multi_step
+    eval_multi_step_gathered = train_multi_step

@@ -112,7 +112,6 @@ def test_cuda_device_without_gpu_raises(corpus, monkeypatch):
     (["--trainer=rnn"], "training"),
     (["--decode", "--trainer=dnn"], "MSE and frame trainers"),
     (["--decode", "--num_gpu=2"], "Parallel"),
-    (["--trainer=gan_rnn", "--same_batch=false"], "same_batch"),
     (["--decode", "--compress"], "Compressed arks"),
 ])
 def test_unported_paths_name_their_roadmap_item(corpus, flags, match):

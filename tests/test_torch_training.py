@@ -1,7 +1,8 @@
 """The port's training layer against the JAX package: losses, clipping,
 Adam/SGD/RMSProp, EMA, schedules, LstmDiscriminator (both kernel
 branches), one whole GanTrainer.train_step from a bridged state, the
-full GanState checkpoint both ways, and eval_step.
+full GanState checkpoint both ways, eval_step, the graph-fed d_step and
+g_step, and the conditioned D (``_d_input``, a conditioned train_step).
 
 f32 throughout; JAX Pallas kernels run in interpreter mode. Tolerances:
 1e-5 for forwards and losses, 2e-4 for gradients (tests/test_pallas_lstm
@@ -332,9 +333,87 @@ def test_gan_state_checkpoint_round_trip(tmp_path, jax_step):
     assert flax.serialization.to_bytes(restored) == port_bytes
 
 
-def test_same_batch_false_and_d_conditioned_raise():
-    tr = port_trainer()
-    with pytest.raises(NotImplementedError, match="same_batch"):
-        tr.d_step()
-    with pytest.raises(NotImplementedError, match="d_conditioned"):
-        port_trainer(d_conditioned=True)
+# ---------------------------------------------------------------------------
+# the graph-fed steps and the conditioned D
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("step", ["d_step", "g_step"])
+def test_graph_fed_step_matches_jax(batch, jax_step, step):
+    """One d_step (G forward in train mode, detached; D at 2B = 32 rows:
+    K1 + K3) or g_step (wavefront + K2, D head at 16 rows: K1 + K2) from
+    one bridged state: the whole state within 1e-5 (G's Adam first step
+    included, as in test_train_step_matches_jax), the step count, and
+    the step's metrics."""
+    s0, _, _, hp = jax_step
+    x, y, lens = batch
+    tr = jax_trainer()
+    jhp = {k: jnp.float32(v) for k, v in hp.items()}
+    with pltpu.force_tpu_interpret_mode():
+        s1, m_want = getattr(JaxTrainer, step).__wrapped__(
+            tr, s0, jnp.asarray(x), jnp.asarray(y), jnp.asarray(lens), jhp,
+            jax.random.PRNGKey(5))
+    ptr, st = bridged_impl(s0, "wavefront")
+    m = getattr(ptr, step)(st, t(x), t(y), t(lens), hp)
+    assert sorted(m) == sorted(m_want)
+    for k, v in m_want.items():
+        np.testing.assert_allclose(float(m[k]), float(v), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    assert st.step == int(s1.step) == (1 if step == "g_step" else 0)
+    assert_state_matches(st, s1, atol=1e-5)
+
+
+@pytest.mark.parametrize("left,right", [(0, 0), (2, 1)])
+def test_d_input_matches_jax(rng, left, right):
+    """D's input: the target alone, or conditioned, the center frame of
+    the spliced input (at input_dim * left_context) beside it."""
+    x = rng.normal(size=(3, T, IN * (left + 1 + right))).astype(np.float32)
+    y = rng.normal(size=(3, T, OUT)).astype(np.float32)
+    for cond in (False, True):
+        want = jax_trainer(d_conditioned=cond,
+                           left_context=left)._d_input(jnp.asarray(x),
+                                                       jnp.asarray(y))
+        got = port_trainer(d_conditioned=cond,
+                           left_context=left)._d_input(t(x), t(y))
+        assert got.shape[-1] == OUT + (IN if cond else 0)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_d_conditioned_train_step_matches_jax(batch):
+    """One conditioned iteration (D on concat(center frame, target), its
+    first layer 13 inputs wide, so the single-layer kernels at every row
+    count) on a spliced input (left = right = 1) from one bridged state:
+    the whole state within 1e-5 and every metric."""
+    _, y, lens = batch
+    rng = np.random.default_rng(43)
+    x = rng.normal(size=(B, T, 3 * IN)).astype(np.float32)
+    tr = JaxTrainer(JaxGen(output_dim=OUT, cell_size=GU,
+                           lstm_impl="wavefront"),
+                    JaxDisc(cell_size=DU, num_projection=OUT,
+                            lstm_impl="wavefront"),
+                    output_dim=OUT, input_dim=IN, left_context=1,
+                    l2_scale=1e-3, d_conditioned=True)
+    hp = {"g_lr": 3e-3, "d_lr": 1e-2, "mse_lambda": 1.0,
+          "disc_noise_std": 0.0, "d_real": 1.0, "d_fake": 0.0}
+    with pltpu.force_tpu_interpret_mode():
+        s0 = tr.init_state(jax.random.PRNGKey(1), jnp.asarray(x),
+                           jnp.asarray(lens))
+        s0 = s0.replace(g=s0.g.replace(params=jax.tree.map(
+            lambda a: a + 0.05, s0.g.params)))
+        s1, m_want = tr._train_step_impl(
+            s0, jnp.asarray(x), jnp.asarray(y), jnp.asarray(lens),
+            {k: jnp.float32(v) for k, v in hp.items()},
+            jax.random.PRNGKey(2))
+    g = ResLstmGenerator(3 * IN, OUT, variant="l", cell_size=GU,
+                         lstm_impl="wavefront")
+    d = LstmDiscriminator(input_dim=IN + OUT, cell_size=DU,
+                          num_projection=OUT, lstm_impl="wavefront")
+    ptr = GanTrainer(g, d, output_dim=OUT, input_dim=IN, left_context=1,
+                     l2_scale=1e-3, d_conditioned=True)
+    st = ptr.init_state()
+    checkpoints.load_state_tree(st, flax.serialization.to_state_dict(
+        jax.tree.map(np.asarray, s0)))
+    m = ptr.train_step(st, t(x), t(y), t(lens), hp)
+    for k, v in m_want.items():
+        np.testing.assert_allclose(float(m[k]), float(v), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    assert_state_matches(st, s1, atol=1e-5)
