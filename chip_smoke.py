@@ -17,9 +17,11 @@ JSON line each; any failure ends the run non-zero:
    small odd shapes (SMALL) in both wirings. Every resident case is also
    launched twice and must give the same bits.
 3. kernels_train — every training kernel against its plain twin, every
-   output stream, in f32 and bf16, at the shapes the train step gives
-   it: K4 in train mode (save_acts=True) at G's width, B=16, T=500; K1
-   (the D forward, the row-group kernel) at 16 and 32 rows; K2 at G's
+   output stream, in f32 and bf16, at the shapes the train steps give
+   it: K4 in train mode (save_acts=True) at G's width, B=16, T=500, and
+   at --g_type=lstm's stack (L=3, U=760, P=280, residual off); K1 (the
+   D forward, the row-group kernel) at 16 and 32 rows, and at G's width
+   (U=760, P=257: res_lstm_l with dropout) at 16 and 32 rows; K2 at G's
    width (16 rows) and D's (16 rows); K3 at D's width (the row-group walk
    and its reduction) at 32 and 64 rows, and at G's width at B=32, 64,
    128 and 256 (K2's resident walk in acc mode and the reduction, the
@@ -35,11 +37,18 @@ JSON line each; any failure ends the run non-zero:
    resident route in every layer) and of D (16 and 32 rows) through the
    kernels' autograd Functions against the eager cell under autograd,
    f32.
-5. train — a seeded store of 128 train utterances (four length buckets
-   of 32: two batches of each at B=16, interleaved by the shuffle, so
-   the JAX CLI's update order, which the port follows, is not the
-   batcher's) and 16 cv utterances (150-600 frames, 257 -> 40) and a
-   CMVN npz; one epoch of ``rsrgan_tpu_torch.cli.train.main(
+5. prepare — Kaldi arks and scp files of 128 seeded train utterances
+   (four length buckets of 32: two batches of each at B=16, interleaved
+   by the shuffle, so the JAX CLI's update order, which the port
+   follows, is not the batcher's) and 16 cv utterances (150-600 frames,
+   257 -> 40), every other matrix compressed, and Kaldi CMVN stats,
+   written through the port; then ``python -m
+   rsrgan_tpu_torch.cli.prepare`` cmvn, make-store (train, cv), split and
+   verify-store as processes, each exiting 0; every stored matrix
+   bit-equal to the port's read of its ark with the CMVN applied;
+   make-store's frames/s.
+6. train — from the prepare phase's stores and train_cmvn.npz: one
+   epoch of ``rsrgan_tpu_torch.cli.train.main(
    ["--trainer=gan_rnn", "--g_type=res_lstm_l", "--batch_size=16",
    ...])`` with ``--device_feed=off`` (the host feed), then one with the
    default flags on the bf16 kernel path, which on a card feed from the
@@ -49,7 +58,15 @@ JSON line each; any failure ends the run non-zero:
    iteration are printed on a line of their own; one epoch with
    ``--same_batch=false`` (the graph-fed loop) and one with
    ``--d_conditioned=true``, each with finite losses and on the kernel
-   routes (launch counts); decode from the main path's checkpoint; one
+   routes (launch counts); one with ``--keep_prob=0.8`` (G per layer: K1
+   at G width 4 x 3 times an iteration past the main path's launches,
+   K2 backward, no K4 train launch; its ms per iteration beside the
+   main path's); one with ``--g_type=lstm`` (K4 train at P=280, two
+   launches an iteration) and ``--decode`` from its checkpoint; two with
+   ``--checkpoint_every_secs=1`` and the default ``--tensorboard`` (the
+   event files' records and steps against metrics_*.jsonl, the periodic
+   snapshot read back by load_newest_state); decode from the main path's
+   checkpoint; one
    f32 train step on one batch through the kernels against
    --lstm_impl=scan; and one bf16 train step at T=600 under
    torch.profiler (device time by kernel, device busy share; the D
@@ -59,7 +76,7 @@ JSON line each; any failure ends the run non-zero:
    (counts set to 0 just before the step), none on csrc/lstm_bwd.cu;
    then the peak device memory of one bf16 step at B=64, T=600, which
    must stay below the device feed's reserve (FEED_RESERVE_BYTES).
-6. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
+7. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
    upload of its f32 and bf16 tables (GB/s over the f32 bytes that cross
    the link, twice each, and the reference corpus's ~36 M frames
    extrapolated from it); the gather of one batch at B=16 and 32,
@@ -69,7 +86,7 @@ JSON line each; any failure ends the run non-zero:
    prefetch on, block 1, two passes, each residency's gathers queued
    behind a device sleep), every gathered batch bit-equal to the host
    batch of its shard's StoreView batcher.
-7. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
+8. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
    path: its launch count is reset before and read after), and f32 runs
@@ -100,6 +117,8 @@ K3_WALK_BF16_KERNEL = "lstm_bwd_resident_kernel<__nv_bfloat16, true>"
 
 # res_lstm_l at full width; B is bench.py's batch, T a 128-padded length
 L, U, P, OUT = 4, 760, 257, 40
+# --g_type=lstm: Dense 257 -> 280, 3 x LSTM(760, proj 280), Dense 280 -> 40
+LSTM_P = 280
 B, T = 16, 512
 LENGTHS = [512, 497, 301, 150, 384, 511, 256, 199,
            420, 128, 333, 480, 275, 64, 448, 1]
@@ -334,17 +353,19 @@ def true_steps(lengths, T_) -> int:
 # state) and write each output once in full, masked rows included.
 
 
-def wavefront_bound(L_, U_, P_, B_, T_, lengths, dtype_name, train):
-    """K4, residual wiring (G): per true row-step and layer, h·W_h (and
-    in·W_x above layer 1) and m·proj. Bytes: weights, xw1 at the true
-    row-steps, x at every row (the tap of a masked row is x itself),
-    lengths; out: the top tap (decode) or the saved streams (train)."""
+def wavefront_bound(L_, U_, P_, B_, T_, lengths, dtype_name, train,
+                    residual=True):
+    """K4: per true row-step and layer, h·W_h (and in·W_x above layer 1)
+    and m·proj. Bytes: weights, xw1 at the true row-steps, lengths, with
+    the residual wiring (res_lstm_l) x at every row (the tap of a masked
+    row is x itself); out: the top tap (decode) or the saved streams
+    (train)."""
     G_, wb = 4 * U_, 2 if dtype_name == "bfloat16" else 4
     n = true_steps(lengths, T_)
     flops = n * (L_ * 2 * P_ * G_ + (L_ - 1) * 2 * P_ * G_ + L_ * 2 * U_ * P_)
     nbytes = (((2 * L_ - 1) * P_ * G_ + L_ * U_ * P_) * wb
-              + L_ * (G_ + 3 * U_) * 4 + n * G_ * wb
-              + T_ * B_ * P_ * 4 + B_ * 4)
+              + L_ * (G_ + 3 * U_) * 4 + n * G_ * wb + B_ * 4
+              + (T_ * B_ * P_ * 4 if residual else 0))
     if train:
         nbytes += L_ * T_ * B_ * ((2 * P_ + U_) * 4 + G_ * wb)
     else:
@@ -479,8 +500,9 @@ def streaming_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo):
 
 
 def phase_kernels_train(dtype_name: str) -> list:
-    """K4 train mode, K1, K2 (G and D) and K3 (D, and G at B=32, 64, 128
-    and 256) at the train step's shapes."""
+    """K4 train mode (res_lstm_l's stack, and lstm's: L=3, P=280, residual
+    off), K1 (D, and G's width as dropout runs it), K2 (G and D) and K3
+    (D, and G at B=32, 64, 128 and 256) at the train steps' shapes."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
@@ -504,6 +526,23 @@ def phase_kernels_train(dtype_name: str) -> list:
                                 train=True))
     results.append(r)
 
+    # K4 in train mode at LstmGenerator's stack (--g_type=lstm): L=3,
+    # U=760, P=280, residual off
+    lstm_args = kernel_inputs(15, 3, U, LSTM_P, B, TT, TRAIN_LENGTHS, cdt,
+                              "cuda")
+    results.append(timed(
+        "wavefront_fwd_train", dtype_name,
+        lambda: lstm_wavefront_fwd_train(*lstm_args, residual=False),
+        lambda: lstm_wavefront_fwd_reference(*lstm_args, residual=False,
+                                             save_acts=True),
+        streams4,
+        streaming=lambda: wf._launch(*lstm_args, residual=False,
+                                     save_acts=True),
+        net="G_lstm", L=3, U=U, P=LSTM_P, B=B, T=TT,
+        **resident_grid(wf.resident_plan(B, 3, U, LSTM_P, cdt, sms)),
+        **wavefront_bound(3, U, LSTM_P, B, TT, TRAIN_LENGTHS, dtype_name,
+                          train=True, residual=False)))
+
     # K2 at G's width on layer 1 of the training forward's streams
     taps, c_s, h_s, acts = lstm_wavefront_fwd_train(*args, residual=True)
     rng = np.random.default_rng(6)
@@ -519,6 +558,26 @@ def phase_kernels_train(dtype_name: str) -> list:
         streaming=lambda: streaming_bwd(*g_args), net="G", U=U, P=P, B=B, T=TT,
         **resident_grid(ls.resident_plan(B, U, P, cdt, sms)),
         **bwd_bound(U, P, B, TT, TRAIN_LENGTHS, dtype_name, acc=False)))
+
+    # K1 at G's width, as dropout runs G per layer (--keep_prob < 1): B=16
+    # (bench.py) and 32 (the CLI's default), one row a block
+    for rows in (B, 2 * B):
+        rng = np.random.default_rng(20 + rows)
+        g_lens = (TRAIN_LENGTHS * 2)[:rows]
+        prm = layer_params(rng, P, U, P, cdt, "cuda")
+        x = torch.from_numpy(
+            rng.normal(size=(TT, rows, P)).astype(np.float32)).cuda()
+        xw = (x.to(cdt).float() @ prm["w_x"].to(cdt).float()).to(cdt)
+        k1_args = (xw, torch.tensor(g_lens, dtype=torch.int32, device="cuda"),
+                   prm["w_h"], prm["proj"], prm["bias"], prm["wi"],
+                   prm["wf"], prm["wo"])
+        results.append(timed(
+            "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
+            lambda: ls.lstm_fwd_reference(*k1_args), streams4,
+            streaming=lambda: streaming_fwd(*k1_args), steps=TT,
+            net="G", U=U, P=P, B=rows, T=TT,
+            **rowgroup_grid(ls.rowgroup_plan(rows, U, P, cdt, sms)),
+            **k1_bound(U, P, rows, TT, g_lens, dtype_name)))
 
     # K3 at G's width, at the batches where every G layer's backward takes
     # it: B=32 (the CLI's default --batch_size), 64 and 256 (bench.py)
@@ -825,31 +884,143 @@ def phase_grad() -> dict:
     return out
 
 
-def write_corpus(data_dir: str, rng) -> tuple:
-    """128 train utterances (257 -> 40) in four length buckets of 32, so
-    an epoch at B=16 has two batches per bucket, which the shuffle
-    interleaves (the JAX CLI's update order then differs from the
-    batcher's); 16 cv utterances in one bucket; train_cmvn.npz."""
-    from rsrgan_tpu_torch.data import StoreWriter
-    lists = {}
-    for name, buckets, per in (("train", (150, 300, 400, 550), 32),
-                               ("cv", (350,), 16)):
-        path = os.path.join(data_dir, f"{name}.rtu")
-        with StoreWriter(path) as store:
+# The prepare phase's corpus: 128 train utterances (257 -> 40) in four
+# length buckets of 32, so that an epoch at B=16 has two batches per
+# bucket, which the shuffle interleaves (the JAX CLI's update order then
+# differs from the batcher's); 16 cv utterances in one bucket. Features
+# on an LPS-like scale, so that the CMVN the phase computes does work.
+CORPUS = (("train", (150, 300, 400, 550), 32), ("cv", (350,), 16))
+
+
+def prepare_cli(*argv) -> tuple:
+    """``python -m rsrgan_tpu_torch.cli.prepare ...`` as a process: (exit
+    code, wall seconds, its output)."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rsrgan_tpu_torch.cli.prepare", *argv],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    return (proc.returncode, time.monotonic() - t0,
+            (proc.stdout + proc.stderr).strip())
+
+
+def phase_prepare(work: str) -> dict:
+    """Kaldi arks (every other matrix compressed, formats 1 and 2 by row
+    count) and CMVN stats written through the port, then the data
+    preparation CLI as a user runs it: cmvn, make-store (train and cv),
+    split and verify-store, each a process that must exit 0; every
+    stored matrix must be bit-equal to the port's own read of its ark
+    with the CMVN applied. The train phase trains from these stores."""
+    from rsrgan_tpu_torch.data import (ArkWriter, CmvnAccumulator, ScpReader,
+                                       UtteranceStore, load_cmvn_npz,
+                                       write_kaldi_cmvn)
+    rng = np.random.default_rng(13)
+    data_dir = os.path.join(work, "train_data")
+    stores = os.path.join(data_dir, "stores")
+    frames = {}
+    for name, buckets, per in CORPUS:
+        d = os.path.join(data_dir, name)
+        os.makedirs(d)
+        k = 0
+        with ArkWriter(os.path.join(d, "inputs.scp")) as win, \
+                ArkWriter(os.path.join(d, "labels.scp")) as wlab:
             for b, lo in enumerate(buckets):
                 for i in range(per):
                     n = int(rng.integers(lo, lo + 50))
-                    store.add(f"{name}{b}_{i:02d}",
-                              rng.normal(size=(n, P)).astype(np.float32),
-                              rng.normal(size=(n, OUT)).astype(np.float32))
+                    utt = f"{name}{b}_{i:02d}"
+                    compress = k % 2 == 0
+                    win.write_next_utt(
+                        os.path.join(d, "inputs.ark"), utt,
+                        rng.normal(2.0, 3.0, size=(n, P)).astype(np.float32),
+                        compress=compress)
+                    wlab.write_next_utt(
+                        os.path.join(d, "labels.ark"), utt,
+                        rng.normal(0.5, 1.5, size=(n, OUT)).astype(
+                            np.float32), compress=compress)
+                    k += 1
+    # Kaldi's compute-cmvn-stats over the train features as they read back
+    acc = {"inputs": CmvnAccumulator(P), "labels": CmvnAccumulator(OUT)}
+    train = os.path.join(data_dir, "train")
+    for kind, a in acc.items():
+        for _, mat in ScpReader(os.path.join(train, f"{kind}.scp")):
+            a.accumulate(mat)
+        write_kaldi_cmvn(os.path.join(train, f"{kind}.cmvn"),
+                         a.stats_matrix())
+    runs = {"cmvn": prepare_cli(
+        "cmvn", f"--inputs={train}/inputs.cmvn",
+        f"--labels={train}/labels.cmvn", f"--save_dir={data_dir}")}
+    lists = {}
+    for name, _, _ in CORPUS:
+        d = os.path.join(data_dir, name)
+        runs[f"make-store {name}"] = prepare_cli(
+            "make-store", f"--inputs={d}/inputs.scp",
+            f"--labels={d}/labels.scp", f"--cmvn_dir={data_dir}",
+            f"--output_dir={stores}", f"--name={name}")
         lists[name] = os.path.join(data_dir, f"{name}.list")
         with open(lists[name], "w") as f:
-            f.write(path + "\n")
-    np.savez(os.path.join(data_dir, "train_cmvn.npz"),
-             mean_inputs=np.zeros(P), stddev_inputs=np.ones(P),
-             mean_labels=rng.normal(size=OUT),
-             stddev_labels=rng.uniform(0.5, 2.0, size=OUT))
-    return lists["train"], lists["cv"]
+            f.write(os.path.join(stores, f"{name}.rtu") + "\n")
+    # split: the whole corpus's scp pair into tr/ (128) and cv/ (16)
+    whole = os.path.join(data_dir, "whole")
+    os.makedirs(whole)
+    for kind in ("inputs", "labels"):
+        with open(os.path.join(whole, f"{kind}.scp"), "w") as f:
+            for name, _, _ in CORPUS:
+                with open(os.path.join(data_dir, name, f"{kind}.scp")) as g:
+                    f.write(g.read())
+    runs["split"] = prepare_cli("split", "--val_size=16",
+                                f"--data_dir={whole}", "--seed=123")
+    split_lines = {}
+    for sub in ("tr", "cv"):
+        with open(os.path.join(whole, sub, "inputs.scp")) as f:
+            split_lines[sub] = f.read().splitlines()
+    with open(os.path.join(whole, "inputs.scp")) as f:
+        all_lines = f.read().splitlines()
+    split_ok = (len(split_lines["cv"]) == 16
+                and sorted(split_lines["tr"] + split_lines["cv"])
+                == sorted(all_lines))
+    runs["verify-store"] = prepare_cli(
+        "verify-store", *(os.path.join(stores, f"{n}.rtu") for n, _, _ in
+                          CORPUS))
+    # every stored matrix against the port's read of its ark, CMVN applied
+    # in float64 as make-store applies it
+    cmvn_in, cmvn_lab = load_cmvn_npz(os.path.join(data_dir,
+                                                   "train_cmvn.npz"))
+    stored_equal = True
+    for name, _, _ in CORPUS:
+        store = UtteranceStore(os.path.join(stores, f"{name}.rtu"))
+        d = os.path.join(data_dir, name)
+        reads = (ScpReader(os.path.join(d, "inputs.scp")),
+                 ScpReader(os.path.join(d, "labels.scp")))
+        stored_equal = stored_equal and store.utt_ids == reads[0].utt_ids
+        for i, utt in enumerate(store.utt_ids):
+            for got, reader, cmvn in ((store.inputs(i), reads[0], cmvn_in),
+                                      (store.labels(i), reads[1], cmvn_lab)):
+                want = cmvn.apply(np.asarray(reader.read_utt(utt),
+                                             np.float64)).astype(np.float32)
+                stored_equal = stored_equal and np.array_equal(got, want)
+        frames[name] = int(store.lengths.sum())
+    out = {"phase": "prepare", "utterances": {n: p * len(b) for n, b, p in
+                                              CORPUS},
+           "frames": frames, "compressed_share": 0.5,
+           "cli": {k: {"rc": rc, "seconds": secs, "output": text[-200:]}
+                   for k, (rc, secs, text) in runs.items()},
+           "make_store_train_frames_per_s_process":
+               frames["train"] / runs["make-store train"][1],
+           # cmvn reads two small stats files: its wall time is about
+           # the interpreter's start-up, which every subcommand pays
+           "startup_seconds_cmvn": runs["cmvn"][1],
+           "make_store_train_frames_per_s_less_startup":
+               frames["train"] / (runs["make-store train"][1]
+                                  - runs["cmvn"][1]),
+           "split_ok": split_ok, "stored_bit_equal": stored_equal,
+           "name, power.limit": card_name_and_limit(),
+           "ok": (all(rc == 0 for rc, _, _ in runs.values()) and split_ok
+                  and stored_equal
+                  and runs["verify-store"][2].count(", OK") == 2)}
+    out["lists"] = {"train": lists["train"], "cv": lists["cv"],
+                    "data_dir": data_dir}
+    emit(out)
+    return out
 
 
 def train_step_parity(tr_list: str) -> dict:
@@ -912,6 +1083,18 @@ def longest_utterances(store, rows: int) -> tuple:
     return inputs, labels, lengths
 
 
+def reset_counts(counters: dict) -> None:
+    """Every launch count of ``counters`` (name -> (wrapper, attribute))
+    set to 0, or emptied where it is a count by shape."""
+    for fn, attr in counters.values():
+        setattr(fn, attr, type(getattr(fn, attr))())
+
+
+def read_counts(counters: dict) -> dict:
+    return {name: (dict(v) if isinstance(v := getattr(fn, attr), dict)
+                   else v) for name, (fn, attr) in counters.items()}
+
+
 def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
     """Device time by kernel of one bf16 train step on the kernels (a
     warm-up step first), from torch.profiler; wall time from the host
@@ -947,8 +1130,7 @@ def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
     noise = torch.Generator(device="cuda").manual_seed(32)
     trainer.train_step(state, *args, hp, noise)
     torch.cuda.synchronize()
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    reset_counts(counters)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
@@ -956,8 +1138,7 @@ def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
         float(m["g_loss"])
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    launches = {name: getattr(fn, attr)
-                for name, (fn, attr) in counters.items()}
+    launches = read_counts(counters)
     # kernel rows only: an op row (an autograd node, aten::mm) also
     # carries the device time of the kernels launched inside it
     by_kernel = {}
@@ -1026,14 +1207,12 @@ def cli_epoch(train_cli, counters, flags) -> tuple:
     before it; (its last train and eval metrics rows, the counts, wall
     seconds)."""
     import torch
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    reset_counts(counters)
     t0 = time.monotonic()
     rc = train_cli.main(flags)
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
-    launches = {name: getattr(fn, attr)
-                for name, (fn, attr) in counters.items()}
+    launches = read_counts(counters)
     if rc != 0:
         raise RuntimeError(f"training {flags[-3:]} returned {rc}")
     save_dir = next(f.split("=", 1)[1] for f in flags
@@ -1053,26 +1232,157 @@ def on_kernel_routes(launches: dict) -> bool:
             and launches["lstm_bwd_acc_streaming"] == 0)
 
 
-def phase_train(work: str) -> dict:
-    """The flagship LSGAN epoch through the CLI: host-fed and device-fed
-    (the main path, bit-equal to the host-fed one), graph-fed and
-    conditioned; decode from its checkpoint; the f32 parity; profiled
-    steps; the B=64 step's peak memory."""
+def speed(row) -> dict:
+    """Train frames/s and ms per iteration of a CLI epoch's last row."""
+    return {"train_frames_per_s": row["train_frames_per_sec"],
+            "ms_per_iteration": 1e3 * row["train_secs"] / row["train_steps"],
+            "steps": row["train_steps"]}
+
+
+def finite_losses(row, cv_row) -> bool:
+    return all(np.isfinite(v) for r in (row, cv_row) for k, v in r.items()
+               if k.endswith("loss"))
+
+
+def dropout_epoch(train_cli, counters, flags, main_row, main_launches):
+    """--keep_prob=0.8 with res_lstm_l, on the same batches as the main
+    path: G leaves the wavefront for the per-layer kernels, K1 at G width
+    forward (4 layers x 3 G forwards an iteration: the D step's fake and
+    each G step draw their own masks) and K2 backward at B=16, no K4 in
+    train mode. K1 at G width is counted where the wrapper launches it
+    (``lstm_fwd.launches_by_units`` at U=760); D's and the cv pass's K1
+    launches are the main path's."""
+    row, cv_row, launches, secs = cli_epoch(
+        train_cli, counters, flags("dropout", "--keep_prob=0.8"))
+    steps = row["train_steps"]
+    k1_g = launches["lstm_fwd_by_units"].get(U, 0)
+    out = {"launches": launches, "k1_g_width_launches": k1_g,
+           "k1_g_width_per_iteration": k1_g / steps, "seconds": secs,
+           "speed": speed(row), "flagship_speed": speed(main_row),
+           "losses": {k: v for k, v in row.items() if k.endswith("loss")}}
+    out["ok"] = (finite_losses(row, cv_row)
+                 and steps == main_row["train_steps"]
+                 and k1_g == L * 3 * steps
+                 and launches["lstm_fwd"] == main_launches["lstm_fwd"] + k1_g
+                 and launches["wavefront_fwd_train"] == 0
+                 and launches["lstm_bwd"] == main_launches["lstm_bwd"]
+                 and launches["lstm_bwd_acc_streaming"] == 0)
+    emit({"phase": "train_dropout", **out,
+          "name, power.limit": card_name_and_limit()})
+    return out
+
+
+def lstm_epoch(train_cli, counters, flags, work, data_dir, cv_list,
+               main_row, main_launches):
+    """--g_type=lstm: K4 in train mode at L=3, U=760, P=280, residual
+    off (two launches an iteration: the G forward the D step shares with
+    the first G step, and the second G step's), K2 backward for its 3
+    layers in each of the 2 G steps where res_lstm_l has 4, D's K1, K2
+    and K3 launches as the main path's; then --decode from its
+    checkpoint on K4's decode mode (launches counted apart)."""
+    import torch
+    row, cv_row, launches, secs = cli_epoch(
+        train_cli, counters, flags("lstm", "--g_type=lstm"))
+    steps = row["train_steps"]
+    k2_want = main_launches["lstm_bwd"] - (L - 3) * 2 * steps
+    reset_counts(counters)
+    save_dir = os.path.join(work, "lstm")
+    rc = train_cli.main(["--decode", "--trainer=gan_rnn", "--g_type=lstm",
+                         "--decode_batch_size=16", f"--input_dim={P}",
+                         f"--output_dim={OUT}", f"--data_dir={data_dir}",
+                         f"--test_list_file={cv_list}",
+                         f"--save_dir={save_dir}"])
+    torch.cuda.synchronize()
+    decode_launches = counters["wavefront_fwd"][0].launches
+    ark = read_ark(os.path.join(save_dir, "test", "feats.scp"))
+    out = {"launches": launches, "decode_launches": decode_launches,
+           "lstm_bwd_expected": k2_want, "seconds": secs,
+           "speed": speed(row), "decoded": len(ark)}
+    out["ok"] = (finite_losses(row, cv_row)
+                 and steps == main_row["train_steps"]
+                 and launches["wavefront_fwd_train"] == 2 * steps
+                 and launches["lstm_bwd"] == k2_want
+                 and launches["lstm_fwd"] == main_launches["lstm_fwd"]
+                 and launches["lstm_fwd_by_units"].get(U, 0) == 0
+                 and launches["lstm_bwd_acc"] == main_launches["lstm_bwd_acc"]
+                 and launches["lstm_bwd_acc_resident"] == 0
+                 and launches["lstm_bwd_acc_streaming"] == 0 and rc == 0
+                 and decode_launches > 0 and len(ark) == 16
+                 and all(m.shape[1] == OUT and np.isfinite(m).all()
+                         for m in ark.values()))
+    emit({"phase": "train_lstm", **out})
+    return out
+
+
+def snapshot_epochs(train_cli, counters, flags, work):
+    """Two epochs with --checkpoint_every_secs=1 and the default
+    --tensorboard: each split's events file holds a version record and
+    one record per metrics_*.jsonl line, steps the iterations, CRCs
+    valid; the periodic snapshot exists, and load_newest_state reads it
+    back (made the newest file, as after a crash) into a fresh state."""
+    import torch
+    from rsrgan_tpu_torch.training import (load_newest_state,
+                                           periodic_snapshot_path)
+    from rsrgan_tpu_torch.training.tensorboard import read_scalar_events
+    argv = flags("snapshots", "--checkpoint_every_secs=1",
+                 "--min_epoches=2", "--max_epoches=2")
+    row, cv_row, launches, secs = cli_epoch(train_cli, counters, argv)
+    save_dir = os.path.join(work, "snapshots")
+    events_ok, records = True, {}
+    for split in ("train", "eval"):
+        with open(os.path.join(save_dir, f"metrics_{split}.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        names = os.listdir(os.path.join(save_dir, split))
+        events = (read_scalar_events(os.path.join(save_dir, split, names[0]))
+                  if len(names) == 1 else [])
+        records[split] = len(events)
+        events_ok = (events_ok and len(events) == 1 + len(rows) == 3
+                     and [e["step"] for e in events[1:]]
+                     == [r["iteration"] for r in rows] == [1, 2]
+                     and all(e["scalars"][k] == np.float32(r[k])
+                             for e, r in zip(events[1:], rows)
+                             for k in r if k != "iteration"))
+    snap = periodic_snapshot_path(save_dir, "GAN_RNN")
+    source, step = None, None
+    if os.path.isfile(snap):
+        os.utime(snap, (time.time() + 5,) * 2)
+        trainer = train_cli.build_trainer(
+            train_cli.build_parser().parse_args(argv), torch.device("cuda"),
+            torch.bfloat16)
+        state = trainer.init_state()
+        _, source = load_newest_state(save_dir, "GAN_RNN", state)
+        step = state.step
+    out = {"seconds": secs, "event_records": records, "events_ok": events_ok,
+           "snapshot": os.path.isfile(snap), "restored_from": source,
+           "restored_step": step}
+    out["ok"] = (finite_losses(row, cv_row) and events_ok
+                 and source == "periodic" and step is not None and step >= 1)
+    emit({"phase": "train_snapshots", **out})
+    return out
+
+
+def phase_train(work: str, prepared: dict) -> dict:
+    """The flagship LSGAN epoch through the CLI, from the prepare phase's
+    stores and CMVN: host-fed and device-fed (the main path, bit-equal to
+    the host-fed one), graph-fed and conditioned; with dropout
+    (--keep_prob=0.8), with --g_type=lstm (and its decode), with periodic
+    snapshots and TensorBoard files; decode from the main path's
+    checkpoint; the f32 parity; profiled steps; the B=64 step's peak
+    memory."""
     import torch
     from rsrgan_tpu_torch.cli import train as train_cli
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
     from rsrgan_tpu_torch.training import latest_checkpoint
 
-    rng = np.random.default_rng(13)
-    data_dir = os.path.join(work, "train_data")
-    os.makedirs(data_dir)
-    tr_list, cv_list = write_corpus(data_dir, rng)
+    tr_list, cv_list = prepared["train"], prepared["cv"]
+    data_dir = prepared["data_dir"]
     # name -> (wrapper, its count); lstm_bwd_acc counts its three routes
     # apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu
     counters = {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train,
                                         "launches"),
                 "lstm_fwd": (ls.lstm_fwd, "launches"),
+                "lstm_fwd_by_units": (ls.lstm_fwd, "launches_by_units"),
                 "lstm_bwd": (ls.lstm_bwd, "launches"),
                 "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
                 "lstm_bwd_acc_resident": (ls.lstm_bwd_acc,
@@ -1115,11 +1425,6 @@ def phase_train(work: str) -> dict:
             feeds_equal = (feeds_equal and f.read() == main_bytes
                            and losses_of(t_row, t_cv) == losses)
 
-    def speed(r):
-        return {"train_frames_per_s": r["train_frames_per_sec"],
-                "ms_per_iteration": 1e3 * r["train_secs"]
-                / r["train_steps"], "steps": r["train_steps"]}
-
     feed_speeds = {tag: speed(r[0]) for tag, r in runs.items()}
     emit({"phase": "train_feeds", "B": B, "order": list(runs),
           "speed": feed_speeds, "bit_equal": feeds_equal,
@@ -1136,6 +1441,11 @@ def phase_train(work: str) -> dict:
                          "ok": (on_kernel_routes(v_launches)
                                 and all(np.isfinite(x)
                                         for x in v_losses.values()))}
+
+    dropout = dropout_epoch(train_cli, counters, flags, row, launches)
+    lstm = lstm_epoch(train_cli, counters, flags, work, data_dir, cv_list,
+                      row, launches)
+    snapshots = snapshot_epochs(train_cli, counters, flags, work)
 
     rc = train_cli.main(["--decode", "--trainer=gan_rnn",
                          "--g_type=res_lstm_l", "--decode_batch_size=16",
@@ -1171,7 +1481,8 @@ def phase_train(work: str) -> dict:
            "ms_per_iteration": 1e3 * row["train_secs"] / row["train_steps"],
            "feeds": feed_speeds, "feeds_bit_equal": feeds_equal,
            "losses": losses, "checkpoint": os.path.basename(ckpt or ""),
-           "variants": variants,
+           "variants": variants, "dropout": dropout, "lstm": lstm,
+           "snapshots": snapshots,
            "decode_ok": decode_ok, "parity_f32": parity,
            "profile_bf16_step": profile, "k3_rowgroup_in_step": k3_rowgroup,
            "profile_bf16_step_b32": profile32,
@@ -1180,6 +1491,7 @@ def phase_train(work: str) -> dict:
            "feed_reserve_bytes": train_cli.FEED_RESERVE_BYTES,
            "ok": (on_kernel_routes(launches) and feeds_equal
                   and all(v["ok"] for v in variants.values())
+                  and dropout["ok"] and lstm["ok"] and snapshots["ok"]
                   and k3_rowgroup and k3_resident
                   and all(np.isfinite(v) for v in losses.values())
                   and ckpt is not None and decode_ok and parity["ok"]
@@ -1468,8 +1780,8 @@ def card_name_and_limit() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-PHASES = ("build", "kernel", "kernels_train", "grad", "train", "feed",
-          "decode")
+PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
+          "feed", "decode")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -1505,6 +1817,7 @@ def kernels_line(results: dict) -> dict:
         wavefront_bound(L, U, P, B, T, LENGTHS, "bfloat16", train=False))]
     if "kernels_train" in results:
         epoch = results["train"]["launches"]
+        dropout, lstm = results["train"]["dropout"], results["train"]["lstm"]
         # K3 at G width runs at the CLI's default batch, not at B=16: its
         # launches are the profiled B=32 step's
         step32 = results["train"]["profile_bf16_step_b32"]["launches"]
@@ -1533,11 +1846,26 @@ def kernels_line(results: dict) -> dict:
                  "lstm_bwd_acc (K3, G layer, B=32: the resident walk "
                  "lstm_bwd_resident_kernel in acc mode, then its reduction "
                  "lstm_wgrad_kernel)", RESIDENT,
-                 "rsrgan_tpu/ops/pallas_lstm.py:364")):
+                 "rsrgan_tpu/ops/pallas_lstm.py:364"),
+                (("lstm_fwd", "G", B),
+                 "lstm_fwd (K1, G layer at U=760, P=257, B=16: res_lstm_l "
+                 "with --keep_prob < 1)", RESIDENT,
+                 "rsrgan_tpu/ops/pallas_lstm.py:74"),
+                (("wavefront_fwd_train", "G_lstm", B),
+                 "wavefront_fwd (train, save_acts=True; --g_type=lstm: L=3, "
+                 "P=280, residual off)", RESIDENT, REPLACES)):
             r = by_name[key]
             if r.get("route") == "resident":
                 runs = (step32["lstm_bwd_acc_resident"],
                         "one profiled train step at B=32")
+            elif key == ("lstm_fwd", "G", B):
+                runs = (dropout["k1_g_width_launches"],
+                        "dropout epoch at B=16 (--keep_prob=0.8, device "
+                        "feed, 8 iterations), K1 launches at U=760")
+            elif key[1] == "G_lstm":
+                runs = (lstm["launches"]["wavefront_fwd_train"],
+                        "--g_type=lstm epoch at B=16 (device feed, 8 "
+                        "iterations)")
             else:
                 runs = (epoch[key[0]],
                         "train epoch at B=16, device feed (8 iterations, "
@@ -1584,8 +1912,12 @@ def main(argv=None) -> int:
     if "grad" in phases:
         oks.append(phase_grad()["ok"])
     with tempfile.TemporaryDirectory() as work:
+        # the train phase trains from the prepare phase's stores
+        if "prepare" in phases or "train" in phases:
+            prepared = phase_prepare(work)
+            oks.append(prepared["ok"])
         if "train" in phases:
-            results["train"] = phase_train(work)
+            results["train"] = phase_train(work, prepared["lists"])
             oks.append(results["train"]["ok"])
         if "feed" in phases:
             oks.append(phase_feed(work)["ok"])

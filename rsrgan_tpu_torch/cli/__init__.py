@@ -1,4 +1,5 @@
-"""Command-line entry points of the port (today: ``train --decode``)."""
+"""Command-line entry points of the port: ``train`` (training and
+``--decode``) and ``prepare`` (data preparation)."""
 
 
 def str2bool(v) -> bool:

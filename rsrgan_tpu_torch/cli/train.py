@@ -7,9 +7,14 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
 * training for ``--trainer gan_rnn`` (the flagship LSGAN): 1 D + 2 G
   steps per batch on the same batch, or with ``--same_batch=false`` D and
   G steps on successive batches (the graph-fed loop); ``--d_conditioned``;
-  CV eval, the completed-epoch schedules, accept/reject, checkpoints and
-  the ``.meta.json`` sidecar in the JAX format, so either package resumes
-  or decodes the other's checkpoints. Batches run in the JAX CLI's update
+  ``--g_type lstm|res_lstm_*``; ``--keep_prob`` (dropout between the
+  LSTM layers of G and of D; G then runs per layer, K1 forward, as in
+  JAX); CV eval, the completed-epoch schedules, accept/reject,
+  checkpoints and the ``.meta.json`` sidecar in the JAX format, so either
+  package resumes or decodes the other's checkpoints; periodic snapshots
+  (``--checkpoint_every_secs``, a newer one wins on resume); JSONL metrics
+  and, with ``--tensorboard`` (the default), event files under
+  ``save_dir/train`` and ``save_dir/eval``. Batches run in the JAX CLI's update
   order (``dispatch_order``: same-shape groups of ``--steps_per_call``).
   Their feed: ``--device_feed`` (auto: on where ``--device`` is a card)
   keeps the corpus resident on the device and gathers each batch there
@@ -18,7 +23,8 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
   otherwise, and for the graph-fed loop, a prefetch thread builds host
   batches;
 * ``--decode`` for the sequence trainers (``--trainer gan_rnn|rnn``): G
-  forward, CMVN denormalisation, Kaldi feats.ark/feats.scp.
+  forward, CMVN denormalisation, Kaldi feats.ark/feats.scp (``--compress``:
+  compressed matrices, ``--text``: a text archive).
 
 ``--lstm_impl auto|wavefront`` runs the hand-written kernels (the
 wavefront stack for G, the single-layer kernels for D below 64 rows),
@@ -63,8 +69,10 @@ from rsrgan_tpu_torch.models import (get_discriminator, get_generator,
 from rsrgan_tpu_torch.training import (GanTrainer, ImprovementTracker,
                                        exponential_decay, load_checkpoint,
                                        load_generator_params,
+                                       load_newest_state,
                                        read_checkpoint_meta, save_checkpoint,
-                                       state_tree)
+                                       save_periodic_snapshot, state_tree)
+from rsrgan_tpu_torch.training.tensorboard import EventFileWriter
 
 GAN_METRICS = ("d_rl_loss", "d_fk_loss", "d_loss", "g_adv_loss",
                "g_mse_loss", "g_l2_loss", "g_loss")
@@ -253,20 +261,63 @@ def _avg(accum: list) -> dict:
     return {k: float(v) for k, v in zip(keys, vals.mean(0).tolist())}
 
 
-def _write_metrics(save_dir: str, split: str, iteration: int,
-                   row: dict) -> None:
-    """metrics_{split}.jsonl, one line per iteration (the JAX CLI's
-    JSONL sink; its TensorBoard event files are not written)."""
-    with open(os.path.join(save_dir, f"metrics_{split}.jsonl"), "a") as f:
-        f.write(json.dumps({"iteration": iteration, **row}) + "\n")
+class MetricsWriter:
+    """The JAX CLI's metrics sink: ``metrics_{split}.jsonl``, one line per
+    iteration, and with ``tensorboard`` the same scalars as TensorBoard
+    event files under ``save_dir/{split}``."""
+
+    def __init__(self, save_dir: str, split: str, tensorboard: bool):
+        os.makedirs(save_dir, exist_ok=True)
+        self.path = os.path.join(save_dir, f"metrics_{split}.jsonl")
+        self._tb = (EventFileWriter(os.path.join(save_dir, split))
+                    if tensorboard else None)
+
+    def write(self, iteration: int, metrics: dict) -> None:
+        scalars = {k: float(v) for k, v in metrics.items()}
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"iteration": iteration, **scalars}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalars(iteration, scalars)
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+
+
+class PeriodicSnapshotter:
+    """--checkpoint_every_secs: a crash-recovery snapshot of the whole
+    state, ``{name}.periodic.ckpt``, at most once per ``every_secs``
+    (checked after each update); off at 0."""
+
+    def __init__(self, save_dir: str, name: str, every_secs: float):
+        self.save_dir, self.name, self.every = save_dir, name, every_secs
+        self._last = time.monotonic()
+
+    def maybe(self, state) -> None:
+        if self.every <= 0 or time.monotonic() - self._last < self.every:
+            return
+        save_periodic_snapshot(self.save_dir, self.name, state_tree(state))
+        self._last = time.monotonic()
+        log(f"Periodic snapshot saved ({self.name}.periodic.ckpt)")
+
+
+def restore_state(args, name: str, state) -> Tuple[Optional[str], str]:
+    """Restore the latest accepted checkpoint into ``state``; with
+    periodic snapshots on, a newer snapshot wins (crash recovery).
+    Returns (the file restored or None, its kind)."""
+    if args.checkpoint_every_secs > 0:
+        return load_newest_state(args.save_dir, name, state)
+    return load_checkpoint(args.save_dir, name, state), "checkpoint"
 
 
 def build_trainer(args, device, compute_dtype) -> GanTrainer:
     gen = torch.Generator().manual_seed(args.seed)
     splice = args.left_context + 1 + args.right_context
     impl = resolve_lstm_impl(args)
+    # --keep_prob drops out between the LSTM layers of G and of D, as the
+    # JAX CLI passes it to both
     g = get_generator(args.g_type, input_dim=args.input_dim * splice,
-                      output_dim=args.output_dim,
+                      output_dim=args.output_dim, keep_prob=args.keep_prob,
                       compute_dtype=compute_dtype, lstm_impl=impl,
                       generator=gen)
     # a conditioned D sees the center input frame beside its target
@@ -275,13 +326,17 @@ def build_trainer(args, device, compute_dtype) -> GanTrainer:
                           keep_prob=args.keep_prob,
                           compute_dtype=compute_dtype, lstm_impl=impl,
                           generator=gen)
-    return GanTrainer(g.to(device), d.to(device),
-                      output_dim=args.output_dim, input_dim=args.input_dim,
-                      left_context=args.left_context,
-                      disc_updates=args.disc_updates,
-                      gen_updates=args.gen_updates, l2_scale=args.l2_scale,
-                      max_grad_norm=15.0, g_optimizer="adam",
-                      d_optimizer="sgd", d_conditioned=args.d_conditioned)
+    trainer = GanTrainer(g.to(device), d.to(device),
+                         output_dim=args.output_dim, input_dim=args.input_dim,
+                         left_context=args.left_context,
+                         disc_updates=args.disc_updates,
+                         gen_updates=args.gen_updates,
+                         l2_scale=args.l2_scale, max_grad_norm=15.0,
+                         g_optimizer="adam", d_optimizer="sgd",
+                         d_conditioned=args.d_conditioned)
+    # the dropout masks' streams, apart from D's input noise (seed + 1)
+    trainer.seed_dropout(args.seed + 2, device)
+    return trainer
 
 
 # What the device feed's default budget leaves free on the card for the
@@ -415,10 +470,6 @@ def run_sequence_training(args) -> int:
         raise NotImplementedError(
             f"--num_gpu={args.num_gpu} (data-parallel training) is not "
             f"ported yet; {_ROADMAP}, 'Parallel'")
-    if args.checkpoint_every_secs > 0:
-        raise NotImplementedError(
-            "--checkpoint_every_secs (periodic snapshots) is not ported "
-            f"yet; {_ROADMAP}, item 5")
     device = resolve_device(args.device)
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     trainer = build_trainer(args, device, compute_dtype)
@@ -446,9 +497,11 @@ def run_sequence_training(args) -> int:
         f"LOG: #min_iters = {min_iters}, #max_iters = {max_iters}")
 
     state = trainer.init_state()
-    restored = load_checkpoint(args.save_dir, name, state)
-    log("[*] Load SUCCESS (checkpoint)" if restored
+    restored, restore_src = restore_state(args, name, state)
+    log(f"[*] Load SUCCESS ({restore_src})" if restored
         else "[!] Begin a new model.")
+    snapper = PeriodicSnapshotter(args.save_dir, name,
+                                  args.checkpoint_every_secs)
     g_count = sum(p.numel() for p in state.g.params().values())
     d_count = sum(p.numel() for p in state.d.params().values())
     log(f"G variables: {g_count / 1e6:.2f}M params; "
@@ -459,7 +512,8 @@ def run_sequence_training(args) -> int:
           "d_real": 1.0, "d_fake": 0.0}
     tracker = ImprovementTracker(args.end_improve)
     noise = torch.Generator(device=device).manual_seed(args.seed + 1)
-    os.makedirs(args.save_dir, exist_ok=True)
+    tr_writer = MetricsWriter(args.save_dir, "train", args.tensorboard)
+    cv_writer = MetricsWriter(args.save_dir, "eval", args.tensorboard)
     steps_per_call = max(1, args.steps_per_call)
     left, right = args.left_context, args.right_context
 
@@ -542,6 +596,7 @@ def run_sequence_training(args) -> int:
                     state, feed_tr.inputs_tbl, feed_tr.labels_tbl,
                     *plan_to_device(st, le, device), hp, noise, t_pad,
                     left, right))
+                snapper.maybe(state)
             tr_m = _avg(tr_accum) if tr_accum else None
         elif not args.same_batch:
             # graph-fed: D and G steps on successive minibatches of the
@@ -560,6 +615,7 @@ def run_sequence_training(args) -> int:
                         true_frames += int(batch.lengths.sum())
                         g_accum.append(trainer.g_step(
                             state, *on_device(batch), hp, noise))
+                    snapper.maybe(state)
             except StopIteration:
                 pass
             tr_accum = d_accum + g_accum
@@ -572,6 +628,7 @@ def run_sequence_training(args) -> int:
                 true_frames += int(batch.lengths.sum())
                 tr_accum.append(trainer.train_step(
                     state, *on_device(batch), hp, noise))
+                snapper.maybe(state)
             tr_m = _avg(tr_accum) if tr_accum else None
         if tr_m is None:
             log("ERROR: empty train batch stream")
@@ -625,8 +682,8 @@ def run_sequence_training(args) -> int:
                   "g_lr": hp["g_lr"], "d_lr": hp["d_lr"]}
         if rotating:
             tr_row["eff_epoch"] = eff_epoch
-        _write_metrics(args.save_dir, "train", iteration + 1, tr_row)
-        _write_metrics(args.save_dir, "eval", iteration + 1, cv_m)
+        tr_writer.write(iteration + 1, tr_row)
+        cv_writer.write(iteration + 1, cv_m)
 
         # the reference's staircase: epoch 1 at the initial values, epoch
         # k >= 2 at decay(k - 1) on completed epochs. Under rotation a
@@ -654,6 +711,8 @@ def run_sequence_training(args) -> int:
             log(f"Iteration {iteration + 1}: Finished, too small relative "
                 f"G improvement {tracker.rel_impr:g}")
             break
+    tr_writer.close()
+    cv_writer.close()
     log("Training Done.")
     return 0
 

@@ -1,5 +1,7 @@
 """The ``.rtu`` utterance store, byte for byte as
-``rsrgan_tpu/data/store.py`` writes and reads it (numpy copy).
+``rsrgan_tpu/data/store.py`` writes and reads it (numpy copy), and the
+store's preparation: ``build_store_from_scp`` (Kaldi scp pairs to one
+shard, CMVN applied) and ``verify_store``.
 
 File layout (little-endian)::
 
@@ -14,6 +16,9 @@ import struct
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from rsrgan_tpu_torch.data.cmvn import Cmvn
+from rsrgan_tpu_torch.data.kaldi_ark import read_ark_matrix, read_scp
 
 _MAGIC = b"RTU1"
 
@@ -176,3 +181,73 @@ class StoreView:
 
     def __getitem__(self, i: int):
         return self._store[int(self._ix[i])]
+
+
+def read_rt60_scp(rt60_scp: str) -> dict:
+    """An ``utt_id rt60`` table of scalars."""
+    table = {}
+    with open(rt60_scp) as f:
+        for line in f:
+            parts = line.split()
+            if parts:
+                table[parts[0]] = float(parts[1])
+    return table
+
+
+def build_store_from_scp(inputs_scp: str,
+                         output_path: str,
+                         labels_scp: Optional[str] = None,
+                         inputs_cmvn: Optional[Cmvn] = None,
+                         labels_cmvn: Optional[Cmvn] = None,
+                         rt60_scp: Optional[str] = None) -> int:
+    """Paired scp files -> one store shard; returns the utterances
+    written. The two scp files must pair line by line (same utt ids);
+    global CMVN is applied in float64 before the float32 store; with
+    ``rt60_scp`` each utterance's reverberation time is prepended as an
+    extra leading input column."""
+    in_entries = read_scp(inputs_scp)
+    lab_entries = read_scp(labels_scp) if labels_scp else None
+    if lab_entries is not None and len(in_entries) != len(lab_entries):
+        raise ValueError("inputs/labels scp length mismatch")
+    rt60 = read_rt60_scp(rt60_scp) if rt60_scp else None
+
+    count = 0
+    with StoreWriter(output_path) as writer:
+        for i, (utt_id, path, offset) in enumerate(in_entries):
+            inputs = np.asarray(read_ark_matrix(path, offset), np.float64)
+            if inputs_cmvn is not None:
+                inputs = inputs_cmvn.apply(inputs)
+            if rt60 is not None:
+                col = np.full((inputs.shape[0], 1), rt60[utt_id])
+                inputs = np.concatenate([col, inputs], axis=1)
+            labels = None
+            if lab_entries is not None:
+                lab_id, lab_path, lab_off = lab_entries[i]
+                if lab_id != utt_id:
+                    raise AssertionError(
+                        f"utt id mismatch at line {i}: {utt_id} vs {lab_id}")
+                labels = np.asarray(read_ark_matrix(lab_path, lab_off),
+                                    np.float64)
+                if labels_cmvn is not None:
+                    labels = labels_cmvn.apply(labels)
+            writer.add(utt_id, inputs, labels)
+            count += 1
+    return count
+
+
+def verify_store(path: str) -> Tuple[int, int]:
+    """Structural check of a store shard: magic and footer (raises when
+    they are bad), and every index entry's payload inside the file with
+    labels as long as inputs. Returns (utterances, bad entries)."""
+    store = UtteranceStore([path])
+    size = os.path.getsize(path)
+    bad = 0
+    for _, e in store._entries:
+        end = e["io"] + e["ir"] * e["ic"] * 4
+        ok = e["io"] >= 4 and end <= size
+        if "lo" in e:
+            lend = e["lo"] + e["lr"] * e["lc"] * 4
+            ok = ok and lend <= size and e["lr"] == e["ir"]
+        if not ok:
+            bad += 1
+    return len(store), bad

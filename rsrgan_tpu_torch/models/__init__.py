@@ -1,8 +1,8 @@
 """Model registry of the port (``rsrgan_tpu/models/__init__.py``).
 
-Generators: the residual-LSTM family; every other ``--g_type`` raises
-``NotImplementedError`` naming its ROADMAP.md item. Discriminators: the
-sequence LSTM-D; the frame DNN-D raises likewise.
+Generators: ``lstm`` and the residual-LSTM family; every other
+``--g_type`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+Discriminators: the sequence LSTM-D; the frame DNN-D raises likewise.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from typing import Optional
 import torch
 
 from rsrgan_tpu_torch.models.discriminators import LstmDiscriminator
-from rsrgan_tpu_torch.models.recurrent import (ResLstmGenerator,
+from rsrgan_tpu_torch.models.recurrent import (LstmGenerator,
+                                               ResLstmGenerator,
                                                flatten_tree,
                                                load_flax_params, module_tree,
                                                unflatten_tree)
@@ -22,7 +23,6 @@ SEQUENCE_G_TYPES = ("lstm", "bnlstm", "res_lstm_base", "res_lstm_i",
 FRAME_G_TYPES = ("dnn", "rced", "cnn")
 
 _NOT_PORTED = {
-    "lstm": "Queue 1, 'Main-path models' (LstmGenerator)",
     "bnlstm": "Queue 1, 'BNLSTM and SEGAN'",
     "dnn": "Queue 1, 'MSE and frame trainers'",
     "rced": "Queue 1, 'MSE and frame trainers'",
@@ -31,12 +31,18 @@ _NOT_PORTED = {
 
 
 def get_generator(g_type: str, *, input_dim: int, output_dim: int,
+                  keep_prob: float = 1.0,
                   compute_dtype: torch.dtype = torch.float32,
                   lstm_impl: str = "wavefront",
                   generator: Optional[torch.Generator] = None):
+    if g_type == "lstm":
+        return LstmGenerator(input_dim, output_dim, keep_prob=keep_prob,
+                             compute_dtype=compute_dtype,
+                             lstm_impl=lstm_impl, generator=generator)
     if g_type in ("res_lstm_base", "res_lstm_i", "res_lstm_l"):
         return ResLstmGenerator(input_dim, output_dim,
                                 variant=g_type.rsplit("_", 1)[-1],
+                                keep_prob=keep_prob,
                                 compute_dtype=compute_dtype,
                                 lstm_impl=lstm_impl, generator=generator)
     if g_type in _NOT_PORTED:

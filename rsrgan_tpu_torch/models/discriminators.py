@@ -12,7 +12,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from rsrgan_tpu_torch.ops.common import gaussian_noise
+from rsrgan_tpu_torch.ops.common import MaskSource, gaussian_noise
 from rsrgan_tpu_torch.ops.lstm import StackedLstm
 from rsrgan_tpu_torch.ops.modules import Dense
 
@@ -25,7 +25,9 @@ class LstmDiscriminator(nn.Module):
     ``WAVEFRONT_MIN_ROWS`` rows runs both layers in one wavefront launch;
     smaller calls (the train step's B and 2B rows at B=16) run per layer
     on the single-layer kernels (K1 forward, K2/K3 backward). The choice
-    is made per call shape, as in the JAX package.
+    is made per call shape, as in the JAX package. With ``keep_prob < 1``
+    a train-mode call drops out after each layer (``StackedLstm``), per
+    layer at any row count.
     """
 
     WAVEFRONT_MIN_ROWS = 64
@@ -47,13 +49,15 @@ class LstmDiscriminator(nn.Module):
     def forward(self, inputs: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
                 noise_std: float = 0.0, train: bool = False,
-                noise: Union[torch.Generator, torch.Tensor, None] = None
-                ) -> torch.Tensor:
+                noise: Union[torch.Generator, torch.Tensor, None] = None,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
         """``noise``: a generator to draw the input noise from, the
         standard-normal draws themselves, or None for no noise (the JAX
-        module adds noise whenever it is given a 'noise' rng)."""
+        module adds noise whenever it is given a 'noise' rng); ``masks``:
+        the dropout's mask source, used in train mode only."""
         h = gaussian_noise(inputs, noise_std, noise)
         impl = self.lstm_impl
         if impl == "wavefront" and inputs.shape[0] < self.WAVEFRONT_MIN_ROWS:
             impl = "pallas"
-        return self.Dense_0(self.StackedLstm_0(h, lengths, train, impl))
+        return self.Dense_0(self.StackedLstm_0(h, lengths, train, impl,
+                                               masks))

@@ -19,7 +19,7 @@ rounded to ``compute_dtype`` before it joins the f32 state math.
 ``LstmCellP(lstm_impl="pallas")`` runs the layer on the single-layer
 kernels instead (``ops/lstm_seq.py``: K1 forward, K2/K3 backward), and
 ``StackedLstm`` (MultiRNNCell) chains layers, with the wavefront kernel
-for wide enough batches.
+where no dropout sits between them.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch.ops.common import MaskSource, dropout
 from rsrgan_tpu_torch.ops.lstm_seq import lstm_seq
 from rsrgan_tpu_torch.ops.wavefront_stack import lstm_stack_wavefront
 
@@ -156,22 +157,21 @@ class StackedLstm(nn.Module):
     (residual off) when the input width equals num_proj, and per layer on
     the single-layer kernels otherwise; "pallas" always per layer; "scan"
     the eager cell. ``train`` keeps the activations for the backward.
-    Dropout between layers (keep_prob < 1) is not ported."""
+    With ``dropout_keep_prob < 1`` a train-mode call drops out after every
+    layer (masks from ``masks``) and so runs per layer, the wavefront
+    stack having no dropout points, as in the JAX package."""
 
     def __init__(self, input_dim: int, num_layers: int, num_units: int,
                  num_proj: int, compute_dtype: torch.dtype = torch.float32,
                  dropout_keep_prob: float = 1.0, lstm_impl: str = "scan",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dropout_keep_prob < 1.0:
-            raise NotImplementedError(
-                "dropout between LSTM layers (keep_prob < 1) is not ported "
-                "yet; see ROADMAP.md, Queue 1")
         if lstm_impl not in ("scan", "pallas", "wavefront"):
             raise ValueError(f"unknown lstm_impl {lstm_impl}")
         self.num_proj = num_proj
         self.compute_dtype = compute_dtype
         self.lstm_impl = lstm_impl
+        self.keep_prob = dropout_keep_prob
         cell_impl = "scan" if lstm_impl == "scan" else "pallas"
         for k in range(num_layers):
             self.add_module(f"cell_{k}", LstmCellP(
@@ -186,11 +186,15 @@ class StackedLstm(nn.Module):
     def forward(self, inputs: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
                 train: bool = False,
-                lstm_impl: Optional[str] = None) -> torch.Tensor:
+                lstm_impl: Optional[str] = None,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
         """``lstm_impl`` overrides the module's for this call ("pallas"
-        keeps a wavefront stack on the single-layer kernels)."""
+        keeps a wavefront stack on the single-layer kernels); ``masks``
+        is the dropout's mask source (``ops.common.dropout``)."""
         impl = lstm_impl or self.lstm_impl
-        if impl == "wavefront" and inputs.shape[-1] == self.num_proj:
+        use_dropout = train and self.keep_prob < 1.0
+        if (impl == "wavefront" and not use_dropout
+                and inputs.shape[-1] == self.num_proj):
             return lstm_stack_wavefront(
                 inputs, lengths, [c.params() for c in self.cells()],
                 residual=False, compute_dtype=self.compute_dtype,
@@ -198,4 +202,6 @@ class StackedLstm(nn.Module):
         h = inputs
         for cell in self.cells():
             h = cell(h, lengths, save_acts=train)
+            if use_dropout:
+                h = dropout(h, self.keep_prob, masks)
         return h

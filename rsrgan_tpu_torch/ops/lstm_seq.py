@@ -306,10 +306,14 @@ def lstm_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts=True):
     out = _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
                                save_acts)
     lstm_fwd.launches += 1
+    units = proj.shape[0]
+    lstm_fwd.launches_by_units[units] = (
+        lstm_fwd.launches_by_units.get(units, 0) + 1)
     return out
 
 
 lstm_fwd.launches = 0  # kernel launches in this process
+lstm_fwd.launches_by_units = {}  # the same launches by the layer's U
 
 
 # ---------------------------------------------------------------------------

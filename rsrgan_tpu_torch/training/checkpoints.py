@@ -3,7 +3,9 @@
 The JAX package saves ``flax.serialization.to_bytes(state)`` to
 ``{save_dir}/{name}-{step}.ckpt``, names the newest in a ``checkpoint``
 text file and writes a ``{name}.meta.json`` sidecar
-(``rsrgan_tpu/training/checkpoints.py``). The port reads those files with
+(``rsrgan_tpu/training/checkpoints.py``), and with
+``--checkpoint_every_secs`` a ``{name}.periodic.ckpt`` snapshot that a
+resume takes when it is newer. The port reads those files with
 a pure-Python decoder of the msgpack subset flax writes, and writes them
 with a matching encoder whose output ``flax.serialization.msgpack_restore``
 reads back identically.
@@ -21,7 +23,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
@@ -310,6 +312,23 @@ def save_checkpoint(save_dir: str, name: str, state: Any, step: int,
     return path
 
 
+def periodic_snapshot_path(save_dir: str, name: str) -> str:
+    return os.path.join(save_dir, f"{name}.periodic.ckpt")
+
+
+def save_periodic_snapshot(save_dir: str, name: str, state: Any) -> str:
+    """Atomically overwrite the mid-iteration crash-recovery snapshot
+    ``{name}.periodic.ckpt`` with a state tree (``state_tree``). It stays
+    outside the accepted checkpoints' rotation and never enters the
+    ``checkpoint`` file."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = periodic_snapshot_path(save_dir, name)
+    with open(path + ".tmp", "wb") as f:
+        f.write(msgpack_serialize(state))
+    os.replace(path + ".tmp", path)
+    return path
+
+
 def read_checkpoint(path: str) -> dict:
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
@@ -410,3 +429,21 @@ def load_checkpoint(save_dir: str, name: str, state) -> Optional[str]:
         return None
     load_state_tree(state, read_checkpoint(path))
     return path
+
+
+def load_newest_state(save_dir: str, name: str, state
+                      ) -> Tuple[Optional[str], Optional[str]]:
+    """Restore into ``state`` the latest accepted checkpoint or, when it
+    is newer (by modification time), the periodic snapshot. Returns
+    (path, "periodic" or "checkpoint"), or (None, None) when there is
+    neither."""
+    ckpt = latest_checkpoint(save_dir, name)
+    snap = periodic_snapshot_path(save_dir, name)
+    snap_t = os.path.getmtime(snap) if os.path.isfile(snap) else None
+    ckpt_t = os.path.getmtime(ckpt) if ckpt and os.path.isfile(ckpt) else None
+    if snap_t is not None and (ckpt_t is None or snap_t > ckpt_t):
+        load_state_tree(state, read_checkpoint(snap))
+        return snap, "periodic"
+    if ckpt_t is not None:
+        return load_checkpoint(save_dir, name, state), "checkpoint"
+    return None, None

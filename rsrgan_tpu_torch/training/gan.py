@@ -16,7 +16,12 @@ When G has no dropout (the flagship), the D steps' fake input and the
 first G step's forward are one computation: G runs forward once with its
 autograd graph kept; the D steps take ``g_out.detach()``, and the first
 G step runs the D head with the updated D parameters and backpropagates
-through the kept G graph (the JAX ``jax.vjp`` sharing).
+through the kept G graph (the JAX ``jax.vjp`` sharing). With dropout
+(``keep_prob < 1``) every D step's fake and every G step draw a G forward
+of their own, as in JAX. G's masks and D's come from two mask sources
+kept apart (``g_masks``, ``d_masks``; ``seed_dropout`` seeds two
+generators), as JAX draws G's from their own stream and D's from
+``fold_in(noise_rng, 1)``; D drops out in train mode only.
 
 ``train_step_gathered`` and ``eval_step_gathered`` first assemble their
 batch on the device from resident tables and a ``[B]`` plan
@@ -31,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch.ops.common import MaskSource
 from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
 from rsrgan_tpu_torch.training.losses import (g_mse_loss, l2_loss_nonbias,
                                               lsgan_d_losses,
@@ -54,10 +60,12 @@ class GanState:
 class GanTrainer:
     """Train and eval steps for a (G, D) pair.
 
-    generator(inputs [B, T, D], lengths [B], train) -> [B, T, out];
-    discriminator(x, lengths, noise_std, train, noise) -> [B, T, 1].
+    generator(inputs [B, T, D], lengths [B], train, masks) -> [B, T, out];
+    discriminator(x, lengths, noise_std, train, noise, masks) -> [B, T, 1].
     ``grad_log``: set to a list to record, per update, (net, {param name:
-    gradient before clipping}).
+    gradient before clipping}). ``g_masks``/``d_masks``: the dropout mask
+    sources of G and D (``ops.common.MaskSource``), needed where the net
+    has ``keep_prob < 1``.
     """
 
     def __init__(self, generator: nn.Module, discriminator: nn.Module, *,
@@ -80,6 +88,22 @@ class GanTrainer:
         self.d_conditioned = d_conditioned
         self.g_optimizer, self.d_optimizer = g_optimizer, d_optimizer
         self.grad_log: Optional[List[Tuple[str, dict]]] = None
+        self.g_masks: Optional[MaskSource] = None
+        self.d_masks: Optional[MaskSource] = None
+
+    def seed_dropout(self, seed: int, device) -> None:
+        """G's dropout masks from a generator on ``device`` seeded with
+        ``seed``, D's from another seeded with ``seed + 1``."""
+        self.g_masks = torch.Generator(device=device).manual_seed(seed)
+        self.d_masks = torch.Generator(device=device).manual_seed(seed + 1)
+
+    def _g(self, inputs, lengths, train: bool):
+        return self.generator(inputs, lengths, train,
+                              masks=self.g_masks if train else None)
+
+    def _d(self, x, lengths, hp, train: bool, noise):
+        return self.discriminator(x, lengths, hp["disc_noise_std"], train,
+                                  noise, self.d_masks if train else None)
 
     def init_state(self) -> GanState:
         return GanState(
@@ -109,8 +133,8 @@ class GanTrainer:
                    if self.d_conditioned else inputs)
         lengths2 = (torch.cat([lengths, lengths], dim=0)
                     if lengths is not None else None)
-        d_both = self.discriminator(self._d_input(inputs2, both), lengths2,
-                                    hp["disc_noise_std"], train, noise)
+        d_both = self._d(self._d_input(inputs2, both), lengths2, hp, train,
+                         noise)
         d_rl, d_fk = d_both[:b], d_both[b:]
         d_rl_loss, d_fk_loss, d_loss = lsgan_d_losses(
             d_rl, d_fk, hp["d_real"], hp["d_fake"])
@@ -119,8 +143,8 @@ class GanTrainer:
         return d_loss, metrics, d_fk
 
     def _g_head(self, g_out, inputs, labels, lengths, hp, noise):
-        d_fk = self.discriminator(self._d_input(inputs, g_out), lengths,
-                                  hp["disc_noise_std"], True, noise)
+        d_fk = self._d(self._d_input(inputs, g_out), lengths, hp, True,
+                       noise)
         adv = lsgan_g_adv_loss(d_fk, hp["d_real"])
         mse = g_mse_loss(g_out, labels, self.output_dim)
         return adv, mse
@@ -165,7 +189,7 @@ class GanTrainer:
         metrics: Dict[str, torch.Tensor] = {}
         share = self._share_g_forward()
         if share:
-            g_out = self.generator(inputs, lengths, True)
+            g_out = self._g(inputs, lengths, True)
             fake_shared = g_out.detach()
 
         for _ in range(self.disc_updates):
@@ -173,7 +197,7 @@ class GanTrainer:
                 fake = fake_shared
             else:
                 with torch.no_grad():
-                    fake = self.generator(inputs, lengths, True)
+                    fake = self._g(inputs, lengths, True)
             m = self._d_update(state, fake, inputs, labels, lengths, hp,
                                noise)
             for k, v in m.items():
@@ -181,7 +205,7 @@ class GanTrainer:
 
         for g_iter in range(self.gen_updates):
             if not (share and g_iter == 0):
-                g_out = self.generator(inputs, lengths, True)
+                g_out = self._g(inputs, lengths, True)
             m = self._g_update(state, g_out, inputs, labels, lengths, hp,
                                noise)
             for k, v in m.items():
@@ -203,7 +227,7 @@ class GanTrainer:
         different minibatches): G forward in train mode, detached, then
         the D step at 2B rows."""
         with torch.no_grad():
-            fake = self.generator(inputs, lengths, True)
+            fake = self._g(inputs, lengths, True)
         return self._d_update(state, fake, inputs, labels, lengths, hp,
                               noise)
 
@@ -213,7 +237,7 @@ class GanTrainer:
                ) -> Dict[str, torch.Tensor]:
         """One G update alone (graph-fed trainer semantics); counts a
         step, as the JAX ``g_step`` does."""
-        g_out = self.generator(inputs, lengths, True)
+        g_out = self._g(inputs, lengths, True)
         m = self._g_update(state, g_out, inputs, labels, lengths, hp, noise)
         state.step += 1
         return m
@@ -224,7 +248,7 @@ class GanTrainer:
                   noise: Optional[torch.Generator] = None
                   ) -> Dict[str, torch.Tensor]:
         """All losses, no updates (noise active, no activations kept)."""
-        g_out = self.generator(inputs, lengths, False)
+        g_out = self._g(inputs, lengths, False)
         _, d_m, d_fk = self._d_loss(g_out, inputs, labels, lengths, hp,
                                     noise, train=False)
         adv = lsgan_g_adv_loss(d_fk, hp["d_real"])

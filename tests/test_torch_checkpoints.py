@@ -129,3 +129,149 @@ def test_chunked_arrays_are_refused():
 def test_missing_checkpoint_returns_none(tmp_path):
     assert ckpt.load_generator_params(str(tmp_path), "GAN_RNN") is None
     assert not os.listdir(tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# periodic snapshots, both ways
+# ---------------------------------------------------------------------------
+
+def port_state_like_jax():
+    """The port's GanState for gan_checkpoint's model sizes."""
+    from rsrgan_tpu_torch.models.discriminators import (
+        LstmDiscriminator as PortDisc)
+    from rsrgan_tpu_torch.models.recurrent import (
+        ResLstmGenerator as PortGen)
+    from rsrgan_tpu_torch.training import GanTrainer as PortTrainer
+    return PortTrainer(PortGen(9, 4, cell_size=13),
+                       PortDisc(input_dim=4, cell_size=10, num_projection=4),
+                       output_dim=4, input_dim=9).init_state()
+
+
+def test_snapshots_interchange_with_jax(gan_checkpoint, tmp_path):
+    """A JAX snapshot loads in the port's load_newest_state (newer than
+    the accepted checkpoint, so it wins); the port's snapshot of that
+    state holds the same tree (its keys in the sorted order flax writes
+    after a step, where a fresh JAX state keeps init order) and loads in
+    the JAX load_newest_state to the same tree."""
+    _, _, state = gan_checkpoint
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_ckpt.save_checkpoint(jdir, "GAN_RNN", state, 1)
+    snap = jax_ckpt.save_periodic_snapshot(jdir, "GAN_RNN", state)
+    os.utime(snap, (os.path.getmtime(snap) + 5,) * 2)
+    assert ckpt.periodic_snapshot_path(jdir, "GAN_RNN") == snap
+    st = port_state_like_jax()
+    assert ckpt.load_newest_state(jdir, "GAN_RNN", st) == (snap, "periodic")
+    mine = ckpt.save_periodic_snapshot(pdir, "GAN_RNN", ckpt.state_tree(st))
+    with open(snap, "rb") as a, open(mine, "rb") as b:
+        assert_same_tree(ckpt.msgpack_restore(b.read()),
+                         flax.serialization.msgpack_restore(a.read()))
+    restored, src = jax_ckpt.load_newest_state(pdir, "GAN_RNN", state)
+    assert src == "periodic"
+    with open(mine, "rb") as f:
+        assert_same_tree(flax.serialization.msgpack_restore(
+            flax.serialization.to_bytes(restored)), ckpt.msgpack_restore(
+                f.read()))
+
+
+def test_newest_state_prefers_the_newer_file(gan_checkpoint, tmp_path):
+    """An accepted checkpoint newer than the snapshot wins, in both
+    packages; with neither file there is nothing to load."""
+    _, _, state = gan_checkpoint
+    d = str(tmp_path)
+    st = port_state_like_jax()
+    assert ckpt.load_newest_state(d, "GAN_RNN", st) == (None, None)
+    snap = ckpt.save_periodic_snapshot(d, "GAN_RNN", ckpt.state_tree(st))
+    path = ckpt.save_checkpoint(d, "GAN_RNN", ckpt.state_tree(st), 3)
+    os.utime(snap, (os.path.getmtime(path) - 5,) * 2)
+    assert ckpt.load_newest_state(d, "GAN_RNN", st) == (path, "checkpoint")
+    assert jax_ckpt.load_newest_state(d, "GAN_RNN", state)[1] == \
+        "checkpoint"
+    with open(ckpt._checkpoint_file(d)) as f:
+        assert f.read().strip() == "GAN_RNN-3.ckpt"   # not the snapshot
+
+
+# ---------------------------------------------------------------------------
+# TensorBoard event files
+# ---------------------------------------------------------------------------
+
+def records(path):
+    """(payload, length CRC, payload CRC) of each TFRecord record."""
+    import struct
+    out = []
+    with open(path, "rb") as f:
+        while True:
+            header = f.read(8)
+            if not header:
+                return out
+            (n,) = struct.unpack("<Q", header)
+            len_crc = f.read(4)
+            payload = f.read(n)
+            out.append((header, payload, len_crc, f.read(4)))
+
+
+def without_wall_time(payload: bytes) -> bytes:
+    """An Event payload with its wall_time (field 1, fixed64, first)
+    zeroed."""
+    assert payload[:1] == b"\x09"
+    return payload[:1] + bytes(8) + payload[9:]
+
+
+def test_event_records_equal_jax(tmp_path):
+    """The same scalars through both writers: the same records but for
+    the wall time (steps, tags, float32 values, framing), every CRC
+    valid by the JAX package's CRC32C; the port's reader gives them
+    back."""
+    from rsrgan_tpu.training import tensorboard as jax_tb
+    from rsrgan_tpu_torch.training import tensorboard as tb
+    rng = np.random.default_rng(1)
+    steps = [(1, {"d_loss": 0.25, "g_loss": float(rng.normal()),
+                  "train_frames_per_sec": 123456.789}),
+             (2, {"d_loss": -1e-30, "g_loss": 3.4e38}),
+             (300, {"x": float("inf"), "y": 0.0, "é": 1.0})]
+    files = []
+    for mod, name in ((jax_tb, "jax"), (tb, "port")):
+        w = mod.EventFileWriter(str(tmp_path / name))
+        for step, scalars in steps:
+            w.add_scalars(step, scalars)
+        w.close()
+        files.append(w.path)
+    assert os.path.basename(files[1]).startswith("events.out.tfevents.")
+    got, want = records(files[1]), records(files[0])
+    assert len(got) == len(want) == 1 + len(steps)
+    for (h, p, lc, pc), (wh, wp, wlc, wpc) in zip(got, want):
+        assert h == wh and lc == wlc
+        assert without_wall_time(p) == without_wall_time(wp)
+        for blob, crc in ((h, lc), (p, pc)):
+            assert crc == np.uint32(jax_tb.masked_crc32c(blob)).tobytes()
+    events = tb.read_scalar_events(files[1])
+    assert events[0]["file_version"] == "brain.Event:2"
+    assert [e["step"] for e in events[1:]] == [s for s, _ in steps]
+    for e, (_, scalars) in zip(events[1:], steps):
+        assert list(e["scalars"]) == list(scalars)
+        for k, v in scalars.items():
+            assert e["scalars"][k] == np.float32(v)
+    assert [e["step"] for e in tb.read_scalar_events(files[0])] == \
+        [0] + [s for s, _ in steps]
+
+
+def test_crc32c_matches_jax_and_reader_rejects_damage(tmp_path):
+    from rsrgan_tpu.training import tensorboard as jax_tb
+    from rsrgan_tpu_torch.training import tensorboard as tb
+    rng = np.random.default_rng(2)
+    for n in (0, 1, 7, 100, 4097):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        assert tb.crc32c(data) == jax_tb.crc32c(data)
+        assert tb.masked_crc32c(data) == jax_tb.masked_crc32c(data)
+    assert tb.crc32c(b"123456789") == 0xE3069283   # the CRC-32C check value
+    w = tb.EventFileWriter(str(tmp_path))
+    w.add_scalars(5, {"a": 1.0})
+    w.close()
+    blob = bytearray(open(w.path, "rb").read())
+    blob[-6] ^= 0xFF
+    bad = str(tmp_path / "bad")
+    open(bad, "wb").write(bytes(blob))
+    with pytest.raises(ValueError, match="CRC"):
+        tb.read_scalar_events(bad)
+    open(bad, "wb").write(bytes(blob[:-3]))
+    with pytest.raises(ValueError, match="truncated"):
+        tb.read_scalar_events(bad)

@@ -314,6 +314,70 @@ def test_rowgroup_lstm_fwd_g_width(cuda_device, cdt):
     assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_fwd(*args)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 16, 33])
+def test_rowgroup_lstm_fwd_g_width_rows(cuda_device, cdt, rows):
+    """K1 at G's width (U=760, P=257) as dropout runs it, one row a block,
+    at 1, 3, 16 (B=16) and 33 rows, each with a zero-length row among
+    them (LENS), Glorot-scaled weights; one launch counted per call; two
+    launches give the same bits."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    U_, P_ = 760, 257
+    rng = np.random.default_rng(40 + rows)
+    scale = (6 / (4 * U_ + P_)) ** 0.5
+
+    def u(*shape, s=scale):
+        return torch.tensor(rng.uniform(-s, s, shape), dtype=torch.float32,
+                            device=cuda_device)
+
+    lens = torch.tensor(([0, 17, 11] * rows)[:rows] if rows > 1 else [17],
+                        dtype=torch.int32, device=cuda_device)
+    args = (u(T, rows, 4 * U_, s=1.0).to(cdt), lens, u(P_, 4 * U_).to(cdt),
+            u(U_, P_).to(cdt), u(4 * U_), u(U_), u(U_), u(U_))
+    before = ls.lstm_fwd.launches
+    got = ls.lstm_fwd(*args)
+    assert ls.lstm_fwd.launches == before + 1
+    assert_close(got, ls.lstm_fwd_reference(*args), cdt)
+    assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_fwd(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_train_mode_lstm_generator_width(cuda_device, cdt):
+    """K4 in train mode at LstmGenerator's stack: L=3, U=760, P=280,
+    residual off, B=16 with a zero-length row; every saved stream against
+    the twin."""
+    from rsrgan_tpu_torch.ops.wavefront import lstm_wavefront_fwd_train
+    L_, U_, P_, rows = 3, 760, 280, 16
+    rng = np.random.default_rng(50)
+    scale = (6 / (4 * U_ + 2 * P_)) ** 0.5
+
+    def u(*shape):
+        return torch.tensor(rng.uniform(-scale, scale, shape),
+                            dtype=torch.float32)
+
+    params = [{"kernel": u(2 * P_, 4 * U_), "bias": u(4 * U_),
+               "proj_kernel": u(U_, P_), "w_i_diag": u(1, U_),
+               "w_f_diag": u(1, U_), "w_o_diag": u(1, U_)}
+              for _ in range(L_)]
+    x = torch.tensor(rng.normal(size=(T, rows, P_)), dtype=torch.float32)
+    wx, wh, bias, proj, wi, wf, wo = _prep(params, P_, 1.0)
+    wx, wh, proj = (a.to(cdt).contiguous() for a in (wx, wh, proj))
+    xw1 = torch.matmul(x, wx[0].float()).to(cdt)
+    args = tuple(a.to(cuda_device) for a in (
+        xw1, torch.tensor((LENS * rows)[:rows], dtype=torch.int32), x,
+        wx[1:].contiguous(), wh, proj, bias, wi.contiguous(),
+        wf.contiguous(), wo.contiguous()))
+    before = lstm_wavefront_fwd_train.launches
+    got = lstm_wavefront_fwd_train(*args, residual=False)
+    assert lstm_wavefront_fwd_train.launches == before + 1
+    want = lstm_wavefront_fwd_reference(*args, residual=False,
+                                        save_acts=True)
+    torch.cuda.synchronize()
+    assert_close(got, want, cdt)
+
+
 # ---------------------------------------------------------------------------
 # K3: the row-group walk and its reduction (csrc/resident.cu), K2's
 # resident walk in acc mode and the reduction (G width), and the streaming
