@@ -76,7 +76,30 @@ JSON line each; any failure ends the run non-zero:
    (counts set to 0 just before the step), none on csrc/lstm_bwd.cu;
    then the peak device memory of one bf16 step at B=64, T=600, which
    must stay below the device feed's reserve (FEED_RESERVE_BYTES).
-7. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
+7. train_mse — ``--trainer=rnn --g_type=res_lstm_l`` (the MSE trainer,
+   G alone; recipes/run_rnn.sh's B=16 and learning rate) through the CLI
+   from the same stores: one epoch on the device feed (the main path of
+   this trainer: counts set to 0 just before, read after; each iteration
+   one K4 train launch and one K2 launch per G layer, no K1 and no K3),
+   its ms per iteration and train frames/s beside the flagship's; one
+   on the host feed before it and one after, checkpoints and metrics
+   bit-equal to it; one at B=32,
+   every G-layer backward on K3's resident route and none on
+   csrc/lstm_bwd.cu; one f32 step through the kernels against
+   --lstm_impl=scan (gradients and post-step params, GRAD_TOL); and
+   ``--decode`` from the epoch's checkpoint.
+8. train_frame — the frame trainers through the CLI in f32, with TF32
+   turned on for the process before each run so that only the CLI's own
+   setting turns it off: ``--trainer=dnn`` and ``--trainer=gan_dnn`` at
+   the recipes' width (4 x 1024 on 11 spliced 257-dim frames, 40 out,
+   B=256) for one epoch of the train store, ``--g_type=rced`` and
+   ``--g_type=cnn`` at full width for one epoch of the 16-utterance cv
+   store; each with finite losses, a checkpoint, ``--decode`` from it
+   and its frames/s; then the DNN's (256 rows) and R-CED's (8 rows) f32
+   step on the card against the same step on the CPU (G's output and
+   the last layer's gradients, FRAME_STEP_TOL), and the DNN's step with
+   TF32 on, which that gate must catch.
+9. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
    upload of its f32 and bf16 tables (GB/s over the f32 bytes that cross
    the link, twice each, and the reference corpus's ~36 M frames
    extrapolated from it); the gather of one batch at B=16 and 32,
@@ -86,7 +109,7 @@ JSON line each; any failure ends the run non-zero:
    prefetch on, block 1, two passes, each residency's gathers queued
    behind a device sleep), every gathered batch bit-equal to the host
    batch of its shard's StoreView batcher.
-8. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
+10. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
    path: its launch count is reset before and read after), and f32 runs
@@ -1371,25 +1394,11 @@ def phase_train(work: str, prepared: dict) -> dict:
     memory."""
     import torch
     from rsrgan_tpu_torch.cli import train as train_cli
-    from rsrgan_tpu_torch.ops import lstm_seq as ls
-    from rsrgan_tpu_torch.ops import wavefront as wf
     from rsrgan_tpu_torch.training import latest_checkpoint
 
     tr_list, cv_list = prepared["train"], prepared["cv"]
     data_dir = prepared["data_dir"]
-    # name -> (wrapper, its count); lstm_bwd_acc counts its three routes
-    # apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu
-    counters = {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train,
-                                        "launches"),
-                "lstm_fwd": (ls.lstm_fwd, "launches"),
-                "lstm_fwd_by_units": (ls.lstm_fwd, "launches_by_units"),
-                "lstm_bwd": (ls.lstm_bwd, "launches"),
-                "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
-                "lstm_bwd_acc_resident": (ls.lstm_bwd_acc,
-                                          "resident_launches"),
-                "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc,
-                                           "streaming_launches"),
-                "wavefront_fwd": (wf.lstm_wavefront_fwd, "launches")}
+    counters = counter_table()
 
     def flags(tag, *extra):
         return ["--trainer=gan_rnn", "--g_type=res_lstm_l",
@@ -1496,6 +1505,319 @@ def phase_train(work: str, prepared: dict) -> dict:
                   and all(np.isfinite(v) for v in losses.values())
                   and ckpt is not None and decode_ok and parity["ok"]
                   and peak64 < train_cli.FEED_RESERVE_BYTES)}
+    emit(out)
+    return out
+
+
+# The MSE and frame trainers (--trainer=rnn, dnn, gan_dnn): the recipes'
+# widths (recipes/run_rnn.sh, run_dnn.sh, run_gan_dnn.sh: res_lstm_l at
+# B=16; a 4 x 1024 DNN on 11 spliced 257-dim frames, 40 out, B=256).
+FRAME_CONTEXT = 5
+FRAME_B = 256
+# the frame trainers' f32 step on the card against the same step on the
+# CPU (G's output and its last layer's gradients): both full f32, other
+# summation orders only (~1e-6); TF32 in the card's products (10
+# mantissa bits) misses by ~3e-4 in one 2,827-deep product alone
+FRAME_STEP_TOL = 1e-4
+
+
+def counter_table() -> dict:
+    """name -> (wrapper, its count); lstm_bwd_acc counts its three routes
+    apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import wavefront as wf
+    return {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train, "launches"),
+            "lstm_fwd": (ls.lstm_fwd, "launches"),
+            "lstm_fwd_by_units": (ls.lstm_fwd, "launches_by_units"),
+            "lstm_bwd": (ls.lstm_bwd, "launches"),
+            "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
+            "lstm_bwd_acc_resident": (ls.lstm_bwd_acc, "resident_launches"),
+            "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc,
+                                       "streaming_launches"),
+            "wavefront_fwd": (wf.lstm_wavefront_fwd, "launches")}
+
+
+def mse_step_parity(tr_list: str) -> dict:
+    """One f32 MseTrainer step (res_lstm_l, B=16) through the kernels and
+    through --lstm_impl=scan from one state: a first scan step on another
+    batch gives both Adam moments (from zero moments Adam's first step
+    moves an element by +-lr on the sign of a near-zero gradient, on
+    either side). Gated: the gradients and the post-step params, max
+    |diff| / max |ref| per tensor."""
+    import torch
+    from rsrgan_tpu_torch.data import (SequenceBatcher, UtteranceStore,
+                                       read_list_file)
+    from rsrgan_tpu_torch.models import get_generator
+    from rsrgan_tpu_torch.training import (MseTrainer, load_state_tree,
+                                           state_tree)
+    store = UtteranceStore(read_list_file(tr_list))
+    batches = iter(SequenceBatcher(store, B, seed=1))
+    first, second = next(batches), next(batches)
+
+    def arrays(b):
+        return [torch.from_numpy(a).cuda() for a in (b.inputs, b.labels,
+                                                     b.lengths)]
+
+    trainers, states = {}, {}
+    for impl in ("scan", "wavefront"):
+        g = get_generator("res_lstm_l", input_dim=P, output_dim=OUT,
+                          compute_dtype=torch.float32, lstm_impl=impl,
+                          generator=torch.Generator().manual_seed(21))
+        trainers[impl] = MseTrainer(g.cuda(), output_dim=OUT, l2_scale=1e-5,
+                                    max_grad_norm=15.0)
+        states[impl] = trainers[impl].init_state()
+    trainers["scan"].train_step(states["scan"], *arrays(first), 5e-4)
+    load_state_tree(states["wavefront"], state_tree(states["scan"]))
+    for impl, tr in trainers.items():
+        tr.grad_log = []
+        tr.train_step(states[impl], *arrays(second), 5e-4)
+    grads = max(rel_errs(trainers["wavefront"].grad_log[0],
+                         trainers["scan"].grad_log[0]).values())
+    post = max(rel_errs(states["wavefront"].net.params(),
+                        states["scan"].net.params()).values())
+    return {"grad_rel_err": grads, "post_step_param_rel_err": post,
+            "tol": GRAD_TOL, "ok": grads <= GRAD_TOL and post <= GRAD_TOL}
+
+
+def decode_checkpoint(train_cli, argv, save_dir, want_utts) -> dict:
+    """``--decode`` of a training run's checkpoint through the CLI:
+    (ok, wall seconds); ok needs every utterance, OUT wide and finite."""
+    import torch
+    t0 = time.monotonic()
+    rc = train_cli.main(["--decode", *argv])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    ark = read_ark(os.path.join(save_dir, "test", "feats.scp"))
+    ok = (rc == 0 and len(ark) == want_utts
+          and all(m.shape[1] == OUT and np.isfinite(m).all()
+                  for m in ark.values()))
+    return {"ok": ok, "seconds": secs}
+
+
+def speed_of(train: dict) -> dict:
+    """The flagship CLI epoch's speed from the train phase's line."""
+    return {"train_frames_per_s": train["train_frames_per_s"],
+            "ms_per_iteration": train["ms_per_iteration"]}
+
+
+def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
+    """--trainer=rnn --g_type=res_lstm_l through the CLI (G alone, MSE;
+    recipes/run_rnn.sh's B=16 and lr): one epoch on the device feed (the
+    main path: counts set to 0 just before, read after), whose
+    iterations must each launch K4 in train mode once and K2 once per G
+    layer at U=760 and nothing at D's width; one on the host feed before
+    it and one after, whose checkpoints and metrics must be bit-equal to
+    it; one at B=32, the CLI's
+    default, whose G-layer backwards must all take K3's resident route;
+    the f32 step through the kernels against --lstm_impl=scan; --decode
+    from the epoch's checkpoint."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.training import latest_checkpoint
+    counters = counter_table()
+    tr_list, cv_list = prepared["train"], prepared["cv"]
+    data_dir = prepared["data_dir"]
+
+    def flags(tag, *extra):
+        return ["--trainer=rnn", "--g_type=res_lstm_l", "--batch_size=16",
+                "--g_learning_rate=0.0005", "--min_epoches=1",
+                "--max_epoches=1", f"--input_dim={P}", f"--output_dim={OUT}",
+                f"--data_dir={data_dir}", f"--tr_list_file={tr_list}",
+                f"--cv_list_file={cv_list}", "--seed=5", *extra,
+                f"--save_dir={os.path.join(work, tag)}"]
+
+    # host, device (the main path), host: the first run pays the
+    # trainer's first launches
+    runs = {tag: cli_epoch(train_cli, counters, flags(tag, *extra))
+            for tag, extra in (("mse_host", ("--device_feed=off",)),
+                               ("mse", ()),
+                               ("mse_host_2", ("--device_feed=off",)))}
+    row, cv_row, launches, secs = runs["mse"]
+    steps = row["train_steps"]
+    cv_batches = launches["wavefront_fwd"]
+    main_ok = (launches["wavefront_fwd_train"] == steps
+               and launches["lstm_bwd"] == L * steps
+               and launches["lstm_fwd"] == 0 and launches["lstm_bwd_acc"] == 0
+               and cv_batches > 0)
+    ckpts = {}
+    for tag in runs:
+        with open(latest_checkpoint(os.path.join(work, tag), "RNNTrainer"),
+                  "rb") as f:
+            ckpts[tag] = f.read()
+    losses = {tag: {(split + k): v
+                    for split, r in (("", r_[0]), ("cv_", r_[1]))
+                    for k, v in r.items() if k.endswith("loss")}
+              for tag, r_ in runs.items()}
+    feeds_equal = all(ckpts[t] == ckpts["mse"] and losses[t] == losses["mse"]
+                      and runs[t][0]["train_steps"] == steps for t in runs)
+
+    row32, cv32, launches32, _ = cli_epoch(
+        train_cli, counters, flags("mse_b32", "--batch_size=32"))
+    steps32 = row32["train_steps"]
+    k3_ok = (launches32["lstm_bwd_acc_resident"] == L * steps32
+             and launches32["lstm_bwd_acc"] == 0
+             and launches32["lstm_bwd_acc_streaming"] == 0
+             and launches32["lstm_bwd"] == 0 and launches32["lstm_fwd"] == 0
+             and launches32["wavefront_fwd_train"] == steps32)
+    parity = mse_step_parity(tr_list)
+    decode = decode_checkpoint(
+        train_cli, ["--trainer=rnn", "--g_type=res_lstm_l",
+                    "--decode_batch_size=16", f"--input_dim={P}",
+                    f"--output_dim={OUT}", f"--data_dir={data_dir}",
+                    f"--test_list_file={cv_list}",
+                    f"--save_dir={os.path.join(work, 'mse')}"],
+        os.path.join(work, "mse"), 16)
+    out = {"phase": "train_mse", "seconds": secs, "launches": launches,
+           "launches_per_iteration": {
+               k: launches[k] / steps for k in ("wavefront_fwd_train",
+                                                "lstm_bwd", "lstm_fwd",
+                                                "lstm_bwd_acc")},
+           "cv_batches": cv_batches, "speed": speed(row),
+           "host_feed_speed": [speed(runs[t][0])
+                               for t in ("mse_host", "mse_host_2")],
+           "flagship_speed": flagship, "feeds_bit_equal": feeds_equal,
+           "losses": losses["mse"], "b32": {
+               "launches": launches32, "speed": speed(row32),
+               "k3_resident_route": k3_ok},
+           "parity_f32": parity, "decode": decode,
+           "name, power.limit": card_name_and_limit()}
+    out["ok"] = (main_ok and feeds_equal and k3_ok and parity["ok"]
+                 and decode["ok"] and finite_losses(row, cv_row)
+                 and finite_losses(row32, cv32))
+    emit(out)
+    return out
+
+
+def frame_step_parity(make_gen, last: str, rows: int, store_list: str,
+                      seed: int, tf32: bool = False) -> dict:
+    """One f32 MseTrainer step (frame mode) of a frame model on the card
+    and the same step on the CPU, from one seeded init, on the first
+    ``rows`` frames of the store's frame batcher. Gated, max |diff| / max
+    |ref| per tensor: G's output before the step and the gradients of
+    its last (output) layer ``last``, both continuous in the inputs, so
+    two f32 runs agree to rounding while TF32 (10 mantissa bits) misses
+    by ~1e-4 to 1e-3. Reported: every gradient and the post-step params.
+    A hidden layer's gradient passes ReLU's step derivative: where a
+    pre-activation lies within rounding of 0 (about one of the DNN's ~1
+    M a step), the two runs take different sides and that unit's row
+    moves by ~1e-3 of the tensor's largest entry, on the CPU in f32
+    against f64 as much as on the card; Adam's first step then takes the
+    sign of a near-zero gradient. ``tf32``: the card's step with TF32 on
+    (the CLI's precision restored after it), to show the gate sees it."""
+    import torch
+    from rsrgan_tpu_torch.cli.train import set_precision
+    from rsrgan_tpu_torch.data import (FrameBatcher, UtteranceStore,
+                                       read_list_file)
+    from rsrgan_tpu_torch.training import MseTrainer
+    batcher = FrameBatcher(UtteranceStore(read_list_file(store_list)), rows,
+                           FRAME_CONTEXT, FRAME_CONTEXT, seed=seed)
+    x, y = next(iter(batcher))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        if tf32 and dev == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+        tr = MseTrainer(make_gen().to(dev), output_dim=OUT, l2_scale=1e-5,
+                        sequence_mode=False)
+        st = tr.init_state()
+        xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        with torch.no_grad():
+            g_out = tr.generator(xd).cpu()
+        tr.grad_log = []
+        tr.train_step(st, xd, yd, None, 1e-3)
+        out[dev] = ({"out": g_out},
+                    {k: v.cpu() for k, v in tr.grad_log[0].items()},
+                    {k: v.detach().cpu() for k, v in st.net.params().items()})
+    set_precision()
+    errs = [rel_errs(card, cpu) for card, cpu in zip(out["cuda"],
+                                                     out["cpu"])]
+    gated = {"out": errs[0]["out"],
+             **{k: v for k, v in errs[1].items() if k.startswith(last)}}
+    return {"rows": rows, "tf32": tf32, "gated_rel_err": gated,
+            "grad_rel_err": errs[1],
+            "post_step_param_rel_err": max(errs[2].values()),
+            "tol": FRAME_STEP_TOL,
+            "ok": max(gated.values()) <= FRAME_STEP_TOL}
+
+
+def phase_train_frame(work: str, prepared: dict) -> dict:
+    """The frame trainers through the CLI, in f32, TF32 turned on for the
+    process first so that only the CLI's own setting turns it off:
+    --trainer=dnn and --trainer=gan_dnn at the recipes' width (4 x 1024
+    on 11 spliced 257-dim frames, 40 out, B=256) for one epoch over the
+    train store; --g_type=rced and --g_type=cnn at full width for one
+    epoch of the 16-utterance cv store (as train and cv); each with
+    finite losses, a checkpoint and --decode from it; frames/s; then the
+    DNN's (256 rows) and R-CED's (8 rows) f32 step on the card against
+    the CPU."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.models import get_generator
+    counters = counter_table()
+    tr_list, cv_list = prepared["train"], prepared["cv"]
+    data_dir = prepared["data_dir"]
+    model = [f"--input_dim={P}", f"--output_dim={OUT}",
+             f"--left_context={FRAME_CONTEXT}",
+             f"--right_context={FRAME_CONTEXT}"]
+    runs = {}
+    for tag, trainer, g_type, lists, extra in (
+            ("dnn", "dnn", "dnn", (tr_list, cv_list),
+             ("--g_learning_rate=0.001",)),
+            ("gan_dnn", "gan_dnn", "dnn", (tr_list, cv_list),
+             ("--g_learning_rate=0.0001", "--d_learning_rate=0.0001",
+              "--init_mse_weight=10.0")),
+            ("rced", "dnn", "rced", (cv_list, cv_list),
+             ("--g_learning_rate=0.001",)),
+            ("cnn", "dnn", "cnn", (cv_list, cv_list),
+             ("--g_learning_rate=0.001",))):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        save_dir = os.path.join(work, f"frame_{tag}")
+        argv = [f"--trainer={trainer}", f"--g_type={g_type}", *model,
+                f"--data_dir={data_dir}", f"--save_dir={save_dir}"]
+        row, cv_row, launches, secs = cli_epoch(
+            train_cli, counters, argv + [
+                f"--batch_size={FRAME_B}", "--min_epoches=1",
+                "--max_epoches=1", f"--tr_list_file={lists[0]}",
+                f"--cv_list_file={lists[1]}", "--seed=5", *extra])
+        tf32_off = not (torch.backends.cuda.matmul.allow_tf32
+                        or torch.backends.cudnn.allow_tf32)
+        name = train_cli.model_name(train_cli.build_parser().parse_args(
+            argv))
+        ckpt = os.path.isfile(os.path.join(save_dir, f"{name}-1.ckpt"))
+        decode = decode_checkpoint(train_cli, argv + [
+            f"--test_list_file={cv_list}"], save_dir, 16)
+        runs[tag] = {"speed": speed(row), "seconds": secs,
+                     "losses": {k: v for k, v in row.items()
+                                if k.endswith("loss")},
+                     "cv_g_loss": cv_row["g_loss"], "checkpoint": ckpt,
+                     "decode": decode, "tf32_off_after_cli": tf32_off,
+                     "lstm_launches": sum(v for v in launches.values()
+                                          if isinstance(v, int)),
+                     "ok": (finite_losses(row, cv_row) and ckpt
+                            and decode["ok"] and tf32_off)}
+    def dnn():
+        return get_generator("dnn", input_dim=P, output_dim=OUT,
+                             left_context=FRAME_CONTEXT,
+                             right_context=FRAME_CONTEXT,
+                             generator=torch.Generator().manual_seed(51))
+
+    def rced():
+        return get_generator("rced", input_dim=P, output_dim=OUT,
+                             left_context=FRAME_CONTEXT,
+                             right_context=FRAME_CONTEXT,
+                             generator=torch.Generator().manual_seed(52))
+
+    # the card's steps run under the precision the last CLI call set
+    parity = {"dnn": frame_step_parity(dnn, "Dense_4.", FRAME_B, cv_list, 7),
+              "rced": frame_step_parity(rced, "Dense_0.", 8, cv_list, 8)}
+    tf32 = frame_step_parity(dnn, "Dense_4.", FRAME_B, cv_list, 7, tf32=True)
+    tf32["ok"] = not tf32["ok"]   # the gate must see TF32
+    out = {"phase": "train_frame", "B": FRAME_B, "runs": runs,
+           "parity_f32_card_vs_cpu": parity, "tf32_caught": tf32,
+           "name, power.limit": card_name_and_limit()}
+    out["ok"] = (all(r["ok"] for r in runs.values())
+                 and all(p["ok"] for p in parity.values()) and tf32["ok"])
     emit(out)
     return out
 
@@ -1781,7 +2103,7 @@ def card_name_and_limit() -> str:
 
 
 PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
-          "feed", "decode")
+          "train_mse", "train_frame", "feed", "decode")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -1821,6 +2143,20 @@ def kernels_line(results: dict) -> dict:
         # K3 at G width runs at the CLI's default batch, not at B=16: its
         # launches are the profiled B=32 step's
         step32 = results["train"]["profile_bf16_step_b32"]["launches"]
+        # --trainer=rnn's launches (the train_mse phase): G alone
+        mse_runs = {}
+        if "train_mse" in results:
+            mse = results["train_mse"]
+            per16 = (f"rnn epoch at B=16, device feed "
+                     f"({int(mse['speed']['steps'])} iterations)")
+            mse_runs = {
+                ("wavefront_fwd_train", None, B): (
+                    mse["launches"]["wavefront_fwd_train"], per16),
+                ("lstm_bwd", "G", B): (mse["launches"]["lstm_bwd"], per16),
+                ("lstm_bwd_acc", "G", 2 * B): (
+                    mse["b32"]["launches"]["lstm_bwd_acc_resident"],
+                    f"rnn epoch at B=32 "
+                    f"({int(mse['b32']['speed']['steps'])} iterations)")}
         by_name = {}
         for r in results["kernels_train"]["bfloat16"]:
             by_name.setdefault((r["kernel"], r.get("net"), r.get("B")), r)
@@ -1870,8 +2206,11 @@ def kernels_line(results: dict) -> dict:
                 runs = (epoch[key[0]],
                         "train epoch at B=16, device feed (8 iterations, "
                         "cv pass)")
-            entries.append(kernel_entry(label, source, replaces, *runs, r,
-                                        r))
+            entry = kernel_entry(label, source, replaces, *runs, r, r)
+            if "train_mse" in results and key in mse_runs:
+                entry["launches_mse"], entry["launches_mse_per"] = \
+                    mse_runs[key]
+            entries.append(entry)
     return {"kernels": entries}
 
 
@@ -1912,13 +2251,21 @@ def main(argv=None) -> int:
     if "grad" in phases:
         oks.append(phase_grad()["ok"])
     with tempfile.TemporaryDirectory() as work:
-        # the train phase trains from the prepare phase's stores
-        if "prepare" in phases or "train" in phases:
+        # the train phases train from the prepare phase's stores
+        if {"prepare", "train", "train_mse", "train_frame"} & set(phases):
             prepared = phase_prepare(work)
             oks.append(prepared["ok"])
         if "train" in phases:
             results["train"] = phase_train(work, prepared["lists"])
             oks.append(results["train"]["ok"])
+        if "train_mse" in phases:
+            flagship = (speed_of(results["train"])
+                        if "train" in results else None)
+            results["train_mse"] = phase_train_mse(work, prepared["lists"],
+                                                   flagship)
+            oks.append(results["train_mse"]["ok"])
+        if "train_frame" in phases:
+            oks.append(phase_train_frame(work, prepared["lists"])["ok"])
         if "feed" in phases:
             oks.append(phase_feed(work)["ok"])
         if "decode" in phases:

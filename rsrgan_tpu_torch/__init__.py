@@ -4,21 +4,24 @@ The port runs on one NVIDIA H100. It mirrors the module names of
 ``rsrgan_tpu`` so that each counterpart is easy to find; the JAX package
 stays the reference that every module here is tested against.
 
-Layer map (what this package holds today — the flagship's training and
-decode slices, and data preparation):
+Layer map (what this package holds today — the LSGAN, MSE and frame
+trainers and their decode, and data preparation):
   data/      numpy copies of the Kaldi ark/scp (compressed matrices
              included), CMVN, splice, .rtu store, store preparation,
-             TFRecord import, synthetic corpus, sequence-batcher and
-             inference-batch codecs (no jax import); the device feed
-  training/  the LSGAN trainer, losses, optimizers and EMA, schedules,
-             checkpoints and periodic snapshots (a flax-msgpack reader
-             and writer of the whole state), TensorBoard event files
+             TFRecord import, synthetic corpus, sequence and frame
+             batchers and inference-batch codecs (no jax import); the
+             device feed
+  training/  the LSGAN trainer (sequence and frame), the MSE trainer,
+             losses, optimizers and EMA, schedules, checkpoints and
+             periodic snapshots (a flax-msgpack reader and writer of the
+             whole state), TensorBoard event files
   ops/       the eager peephole LSTM cell, dropout; the single-layer and
              wavefront LSTM kernels with their autograd, hand-written in
              CUDA (csrc/resident.cu, csrc/lstm_bwd.cu,
              csrc/wavefront_fwd.cu)
-  models/    ResLstmGenerator, LstmGenerator, LstmDiscriminator and their
-             registries
+  models/    ResLstmGenerator, LstmGenerator, the frame generators DNN,
+             R-CED and CNN, LstmDiscriminator, DnnDiscriminator, their
+             registries and the weight bridge to flax trees
   cli/       ``python -m rsrgan_tpu_torch.cli.train`` (train, --decode)
              and ``python -m rsrgan_tpu_torch.cli.prepare``
 

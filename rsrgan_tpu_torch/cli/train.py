@@ -4,37 +4,55 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
 ``--device`` (default ``cuda``; it raises when there is no card unless
 ``--device=cpu`` is given):
 
-* training for ``--trainer gan_rnn`` (the flagship LSGAN): 1 D + 2 G
-  steps per batch on the same batch, or with ``--same_batch=false`` D and
-  G steps on successive batches (the graph-fed loop); ``--d_conditioned``;
+* the sequence trainers: ``--trainer gan_rnn`` (the flagship LSGAN: 1 D +
+  2 G steps per batch on the same batch, or with ``--same_batch=false``
+  D and G steps on successive batches, the graph-fed loop;
+  ``--d_conditioned``) and ``--trainer rnn`` (the MSE trainer, G alone);
   ``--g_type lstm|res_lstm_*``; ``--keep_prob`` (dropout between the
   LSTM layers of G and of D; G then runs per layer, K1 forward, as in
-  JAX); CV eval, the completed-epoch schedules, accept/reject,
-  checkpoints and the ``.meta.json`` sidecar in the JAX format, so either
-  package resumes or decodes the other's checkpoints; periodic snapshots
-  (``--checkpoint_every_secs``, a newer one wins on resume); JSONL metrics
-  and, with ``--tensorboard`` (the default), event files under
-  ``save_dir/train`` and ``save_dir/eval``. Batches run in the JAX CLI's update
-  order (``dispatch_order``: same-shape groups of ``--steps_per_call``).
-  Their feed: ``--device_feed`` (auto: on where ``--device`` is a card)
-  keeps the corpus resident on the device and gathers each batch there
-  from a ``[B]`` plan, rotating resident shards (``--feed_rotation_block``,
-  ``--feed_prefetch``) when the tables exceed ``RSRGAN_FEED_HBM_BUDGET``;
-  otherwise, and for the graph-fed loop, a prefetch thread builds host
-  batches;
-* ``--decode`` for the sequence trainers (``--trainer gan_rnn|rnn``): G
-  forward, CMVN denormalisation, Kaldi feats.ark/feats.scp (``--compress``:
-  compressed matrices, ``--text``: a text archive).
+  JAX); CV eval, the completed-epoch schedules, accept/reject. Batches
+  run in the JAX CLI's update order (``dispatch_order``: same-shape
+  groups of ``--steps_per_call``). Their feed: ``--device_feed`` (auto:
+  on where ``--device`` is a card) keeps the corpus resident on the
+  device and gathers each batch there from a ``[B]`` plan, rotating
+  resident shards (``--feed_rotation_block``, ``--feed_prefetch``) when
+  the tables exceed ``RSRGAN_FEED_HBM_BUDGET``; otherwise, and for the
+  graph-fed loop, a prefetch thread builds host batches;
+* the frame trainers, in f32 whatever ``--bf16`` says: ``--trainer dnn``
+  (MSE, ``--g_type dnn|rced|cnn``, ``--batch_norm`` for dnn and rced)
+  and ``--trainer gan_dnn`` (the frame LSGAN, D conditioned on the center
+  input frame; ``--batch_norm`` is refused, as the JAX package cannot run
+  it), on shuffled frame batches of ``--left_context``/``--right_context``
+  spliced frames, with a CV pass before the first epoch, an accept or a
+  reject after each (a reject rolls the whole state back to the last
+  checkpoint) and the staged learning-rate decay (``--keep_lr``,
+  ``--start_decay_impr``, ``--end_decay_impr``, ``--decay_factor``,
+  ``--min_epoches``);
+* for every trainer: checkpoints and the ``.meta.json`` sidecar in the
+  JAX format, so either package resumes or decodes the other's
+  checkpoints; periodic snapshots (``--checkpoint_every_secs``, a newer
+  one wins on resume); JSONL metrics and, with ``--tensorboard`` (the
+  default), event files under ``save_dir/train`` and ``save_dir/eval``;
+* ``--decode`` for every trainer but ``segan``: G forward (batch-1 over
+  each utterance's frames for the frame trainers, BatchNorm on the
+  checkpoint's running statistics), CMVN denormalisation, Kaldi
+  feats.ark/feats.scp (``--compress``: compressed matrices, ``--text``:
+  a text archive).
 
 ``--lstm_impl auto|wavefront`` runs the hand-written kernels (the
 wavefront stack for G, the single-layer kernels for D below 64 rows),
 ``pallas`` the single-layer kernels for every layer, ``scan`` the eager
-cell under autograd (the f32 oracle). Everything else raises
-``NotImplementedError`` naming its ROADMAP.md item.
+cell under autograd (the f32 oracle). The CLI turns TF32 off, so f32 is
+f32 on a card. ``--trainer segan``, ``--g_type bnlstm``, ``--num_gpu >
+1`` and multi-process runs raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 
     python -m rsrgan_tpu_torch.cli.train --trainer=gan_rnn \\
         --g_type=res_lstm_l --tr_list_file=tr.list --cv_list_file=cv.list \\
         --batch_size=16 --save_dir=exp/gan_rnn
+    python -m rsrgan_tpu_torch.cli.train --trainer=dnn --g_type=dnn \\
+        --left_context=5 --right_context=5 --batch_size=256 \\
+        --tr_list_file=tr.list --cv_list_file=cv.list --save_dir=exp/dnn
     python -m rsrgan_tpu_torch.cli.train --decode --trainer=gan_rnn \\
         --g_type=res_lstm_l --data_dir=DATA --test_list_file=test.list \\
         --save_dir=exp/gan_rnn --decode_batch_size=16
@@ -56,7 +74,8 @@ import numpy as np
 import torch
 
 from rsrgan_tpu_torch.cli import str2bool
-from rsrgan_tpu_torch.data import (ArkWriter, SequenceBatcher, StoreView,
+from rsrgan_tpu_torch.data import (ArkWriter, FrameBatcher,
+                                   SequenceBatcher, StoreView,
                                    ThreadedPrefetcher, UtteranceStore,
                                    bucket_id, infer_batches, load_cmvn_npz,
                                    padded_length, read_list_file,
@@ -65,17 +84,21 @@ from rsrgan_tpu_torch.data.device_feed import (DeviceFeed,
                                                RotatingDeviceFeed,
                                                table_bytes)
 from rsrgan_tpu_torch.models import (get_discriminator, get_generator,
-                                     load_flax_params)
+                                     load_batch_stats, load_flax_params)
 from rsrgan_tpu_torch.training import (GanTrainer, ImprovementTracker,
-                                       exponential_decay, load_checkpoint,
-                                       load_generator_params,
+                                       MseTrainer, exponential_decay,
+                                       load_checkpoint, load_generator_state,
                                        load_newest_state,
+                                       periodic_snapshot_path,
                                        read_checkpoint_meta, save_checkpoint,
-                                       save_periodic_snapshot, state_tree)
+                                       save_periodic_snapshot, staged_decay,
+                                       state_tree)
 from rsrgan_tpu_torch.training.tensorboard import EventFileWriter
 
 GAN_METRICS = ("d_rl_loss", "d_fk_loss", "d_loss", "g_adv_loss",
                "g_mse_loss", "g_l2_loss", "g_loss")
+MSE_METRICS = ("g_mse_loss", "g_l2_loss", "g_loss")
+SEQUENCE_TRAINERS = ("gan_rnn", "rnn")
 
 _ROADMAP = "see ROADMAP.md, Queue 1"
 
@@ -139,10 +162,10 @@ def validate_checkpoint_compat(args, name: str) -> None:
 
 
 def run_decode(args) -> int:
-    if args.trainer not in ("gan_rnn", "rnn"):
+    if args.trainer == "segan":
         raise NotImplementedError(
-            f"--decode --trainer={args.trainer} is not ported yet; "
-            f"{_ROADMAP}, 'MSE and frame trainers'")
+            f"--decode --trainer=segan is not ported yet; {_ROADMAP}, "
+            "'BNLSTM and SEGAN'")
     if args.num_gpu > 1:
         raise NotImplementedError(
             f"--num_gpu={args.num_gpu} (data-parallel decode) is not ported "
@@ -151,16 +174,21 @@ def run_decode(args) -> int:
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     name = model_name(args)
     validate_checkpoint_compat(args, name)
-    splice = args.left_context + 1 + args.right_context
-    gen = get_generator(args.g_type, input_dim=args.input_dim * splice,
+    sequence = args.trainer in SEQUENCE_TRAINERS
+    gen = get_generator(args.g_type, input_dim=args.input_dim,
                         output_dim=args.output_dim,
+                        left_context=args.left_context,
+                        right_context=args.right_context,
+                        batch_norm=args.batch_norm,
                         compute_dtype=compute_dtype,
                         lstm_impl=resolve_lstm_impl(args))
-    params = load_generator_params(args.save_dir, name, args.moving_average)
-    if params is None:
+    found = load_generator_state(args.save_dir, name, args.moving_average)
+    if found is None:
         log("[!] Load failed. Checkpoint not found. Exit now.")
         return 1
+    params, extra = found
     load_flax_params(gen, params)
+    load_batch_stats(gen, extra["batch_stats"] if extra else None)
     gen = gen.to(device).eval()
     log("[*] Load SUCCESS")
 
@@ -175,15 +203,17 @@ def run_decode(args) -> int:
     os.makedirs(out_dir, exist_ok=True)
     ark_path = os.path.join(out_dir, "feats.ark")
 
+    @torch.no_grad()
     def infer(inputs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
-        out = gen(torch.from_numpy(inputs).to(device),
-                  torch.from_numpy(lengths).to(device))
+        x = torch.from_numpy(inputs).to(device)
+        out = (gen(x, torch.from_numpy(lengths).to(device)) if sequence
+               else gen(x))
         return out.float().cpu().numpy()
 
     start = datetime.datetime.now()
     with ArkWriter(os.path.join(out_dir, "feats.scp"),
                    compress=args.compress, text=args.text) as writer:
-        if args.decode_batch_size > 1:
+        if sequence and args.decode_batch_size > 1:
             _decode_batched(args, test_store, infer, labels_cmvn, writer,
                             ark_path)
         else:
@@ -191,8 +221,11 @@ def run_decode(args) -> int:
             for i, batch in enumerate(infer_batches(test_store,
                                                     args.left_context,
                                                     args.right_context)):
-                act = infer(batch.inputs, batch.lengths)
-                act = act[0, :int(batch.lengths[0])]
+                if sequence:
+                    act = infer(batch.inputs, batch.lengths)[0]
+                else:   # the utterance's frames, one batch of T_pad rows
+                    act = infer(batch.inputs[0], batch.lengths)
+                act = act[:int(batch.lengths[0])]
                 writer.write_next_utt(ark_path, batch.utt_ids[0],
                                       labels_cmvn.denormalize(act))
                 log(f"[{i + 1}/{num_batch}] Write inferred "
@@ -245,7 +278,9 @@ def ckpt_meta(args) -> dict:
             "input_dim": args.input_dim, "output_dim": args.output_dim,
             "left_context": args.left_context,
             "right_context": args.right_context,
-            "d_conditioned": bool(args.d_conditioned)}
+            # gan_dnn's D is always conditioned
+            "d_conditioned": (args.trainer == "gan_dnn"
+                              or bool(args.d_conditioned))}
 
 
 def _fmt(metrics: dict, keys) -> str:
@@ -254,11 +289,12 @@ def _fmt(metrics: dict, keys) -> str:
 
 def _avg(accum: list) -> dict:
     """Per-step mean of the metrics, read back from the device in one
-    copy."""
+    copy and averaged in float64, as the JAX CLI averages them."""
     keys = list(accum[0])
     vals = torch.stack([torch.stack([torch.as_tensor(m[k]).float()
                                      for k in keys]) for m in accum]).cpu()
-    return {k: float(v) for k, v in zip(keys, vals.mean(0).tolist())}
+    return {k: float(v)
+            for k, v in zip(keys, vals.double().mean(0).tolist())}
 
 
 class MetricsWriter:
@@ -300,6 +336,13 @@ class PeriodicSnapshotter:
         self._last = time.monotonic()
         log(f"Periodic snapshot saved ({self.name}.periodic.ckpt)")
 
+    def invalidate(self) -> None:
+        """Drop the snapshot when the live state is rolled back: a
+        snapshot of the rejected trajectory must not win on resume."""
+        path = periodic_snapshot_path(self.save_dir, self.name)
+        if os.path.isfile(path):
+            os.remove(path)
+
 
 def restore_state(args, name: str, state) -> Tuple[Optional[str], str]:
     """Restore the latest accepted checkpoint into ``state``; with
@@ -310,33 +353,75 @@ def restore_state(args, name: str, state) -> Tuple[Optional[str], str]:
     return load_checkpoint(args.save_dir, name, state), "checkpoint"
 
 
-def build_trainer(args, device, compute_dtype) -> GanTrainer:
+def build_trainer(args, device, compute_dtype):
+    """The trainer of ``--trainer`` (the JAX CLI's ``build_trainer``), its
+    nets on ``device``: the LSGANs (``gan_rnn``: SGD for D, each tensor
+    clipped to 15; ``gan_dnn``: frame mode, Adam for both, no clipping, D
+    conditioned) or the MSE trainers (``rnn``: clipped to 15; ``dnn``:
+    frame mode, no clipping). Weights are drawn from ``--seed``."""
+    if args.trainer == "segan":
+        raise NotImplementedError(
+            f"--trainer=segan is not ported yet; {_ROADMAP}, "
+            "'BNLSTM and SEGAN'")
     gen = torch.Generator().manual_seed(args.seed)
-    splice = args.left_context + 1 + args.right_context
     impl = resolve_lstm_impl(args)
-    # --keep_prob drops out between the LSTM layers of G and of D, as the
-    # JAX CLI passes it to both
-    g = get_generator(args.g_type, input_dim=args.input_dim * splice,
-                      output_dim=args.output_dim, keep_prob=args.keep_prob,
+    # --keep_prob drops out in G and in D, as the JAX CLI passes it to both
+    g = get_generator(args.g_type, input_dim=args.input_dim,
+                      output_dim=args.output_dim,
+                      left_context=args.left_context,
+                      right_context=args.right_context,
+                      keep_prob=args.keep_prob, batch_norm=args.batch_norm,
                       compute_dtype=compute_dtype, lstm_impl=impl,
-                      generator=gen)
-    # a conditioned D sees the center input frame beside its target
-    d_in = args.output_dim + (args.input_dim if args.d_conditioned else 0)
-    d = get_discriminator("lstm", input_dim=d_in,
-                          keep_prob=args.keep_prob,
-                          compute_dtype=compute_dtype, lstm_impl=impl,
-                          generator=gen)
-    trainer = GanTrainer(g.to(device), d.to(device),
-                         output_dim=args.output_dim, input_dim=args.input_dim,
-                         left_context=args.left_context,
-                         disc_updates=args.disc_updates,
-                         gen_updates=args.gen_updates,
-                         l2_scale=args.l2_scale, max_grad_norm=15.0,
-                         g_optimizer="adam", d_optimizer="sgd",
-                         d_conditioned=args.d_conditioned)
+                      generator=gen).to(device)
+    if args.trainer in ("rnn", "dnn"):
+        trainer = MseTrainer(
+            g, output_dim=args.output_dim, l2_scale=args.l2_scale,
+            max_grad_norm=15.0 if args.trainer == "rnn" else None,
+            sequence_mode=args.trainer == "rnn")
+    elif args.trainer == "gan_dnn":
+        # D sees the center input frame beside its target
+        d = get_discriminator("dnn", input_dim=args.input_dim
+                              + args.output_dim, keep_prob=args.keep_prob,
+                              generator=gen)
+        trainer = GanTrainer(g, d.to(device), output_dim=args.output_dim,
+                             input_dim=args.input_dim,
+                             left_context=args.left_context,
+                             disc_updates=args.disc_updates,
+                             gen_updates=args.gen_updates,
+                             l2_scale=args.l2_scale, max_grad_norm=None,
+                             g_optimizer="adam", d_optimizer="adam",
+                             d_conditioned=True, frame_mode=True)
+    else:
+        # a conditioned D sees the center input frame beside its target
+        d_in = args.output_dim + (args.input_dim if args.d_conditioned
+                                  else 0)
+        d = get_discriminator("lstm", input_dim=d_in,
+                              keep_prob=args.keep_prob,
+                              compute_dtype=compute_dtype, lstm_impl=impl,
+                              generator=gen)
+        trainer = GanTrainer(g, d.to(device), output_dim=args.output_dim,
+                             input_dim=args.input_dim,
+                             left_context=args.left_context,
+                             disc_updates=args.disc_updates,
+                             gen_updates=args.gen_updates,
+                             l2_scale=args.l2_scale, max_grad_norm=15.0,
+                             g_optimizer="adam", d_optimizer="sgd",
+                             d_conditioned=args.d_conditioned)
     # the dropout masks' streams, apart from D's input noise (seed + 1)
     trainer.seed_dropout(args.seed + 2, device)
     return trainer
+
+
+def log_variables(state) -> None:
+    """Parameter counts (the JAX CLI's ``show_all_variables``)."""
+    def count(net):
+        return sum(p.numel() for p in net.params().values())
+
+    if hasattr(state, "g"):
+        log(f"G variables: {count(state.g) / 1e6:.2f}M params; "
+            f"D variables: {count(state.d) / 1e6:.2f}M params")
+    else:
+        log(f"G variables: {count(state.net) / 1e6:.2f}M params")
 
 
 # What the device feed's default budget leaves free on the card for the
@@ -458,14 +543,21 @@ def plan_to_device(starts: np.ndarray, lengths: np.ndarray,
     return dev[0], dev[1]
 
 
+def make_hparams(args) -> Dict[str, float]:
+    """The steps' assignable scalars at their initial values (the JAX
+    CLI's ``make_hparams`` on one device)."""
+    return {"g_lr": args.g_learning_rate, "d_lr": args.d_learning_rate,
+            "mse_lambda": args.init_mse_weight,
+            "disc_noise_std": args.init_disc_noise_std,
+            "d_real": 1.0, "d_fake": 0.0}
+
+
 def run_sequence_training(args) -> int:
-    """The sequence GAN loop of the JAX CLI (``run_sequence_training``)
-    for --trainer=gan_rnn: the device feed (resident or rotating tables),
-    the graph-fed loop (--same_batch=false) or the host feed."""
-    if args.trainer != "gan_rnn":
-        raise NotImplementedError(
-            f"training (--trainer={args.trainer}) is not ported yet; "
-            f"{_ROADMAP}, 'MSE and frame trainers'")
+    """The sequence loop of the JAX CLI (``run_sequence_training``) for
+    --trainer=gan_rnn and --trainer=rnn: the device feed (resident or
+    rotating tables), the graph-fed loop (gan_rnn with
+    --same_batch=false) or the host feed. The MSE trainer takes
+    ``hp["g_lr"]`` as its learning rate."""
     if args.num_gpu > 1:
         raise NotImplementedError(
             f"--num_gpu={args.num_gpu} (data-parallel training) is not "
@@ -473,6 +565,8 @@ def run_sequence_training(args) -> int:
     device = resolve_device(args.device)
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     trainer = build_trainer(args, device, compute_dtype)
+    is_gan = args.trainer == "gan_rnn"
+    metric_keys = GAN_METRICS if is_gan else MSE_METRICS
     name = model_name(args)
 
     tr_store = UtteranceStore(read_list_file(args.tr_list_file))
@@ -502,20 +596,32 @@ def run_sequence_training(args) -> int:
         else "[!] Begin a new model.")
     snapper = PeriodicSnapshotter(args.save_dir, name,
                                   args.checkpoint_every_secs)
-    g_count = sum(p.numel() for p in state.g.params().values())
-    d_count = sum(p.numel() for p in state.d.params().values())
-    log(f"G variables: {g_count / 1e6:.2f}M params; "
-        f"D variables: {d_count / 1e6:.2f}M params")
-    hp = {"g_lr": args.g_learning_rate, "d_lr": args.d_learning_rate,
-          "mse_lambda": args.init_mse_weight,
-          "disc_noise_std": args.init_disc_noise_std,
-          "d_real": 1.0, "d_fake": 0.0}
+    log_variables(state)
+    hp = make_hparams(args)
     tracker = ImprovementTracker(args.end_improve)
     noise = torch.Generator(device=device).manual_seed(args.seed + 1)
     tr_writer = MetricsWriter(args.save_dir, "train", args.tensorboard)
     cv_writer = MetricsWriter(args.save_dir, "eval", args.tensorboard)
     steps_per_call = max(1, args.steps_per_call)
     left, right = args.left_context, args.right_context
+
+    # the two trainers' steps on one batch, or on a plan in the resident
+    # tables (hp is read at each call: the schedules change it)
+    def train_step(x, y, lens):
+        if is_gan:
+            return trainer.train_step(state, x, y, lens, hp, noise)
+        return trainer.train_step(state, x, y, lens, hp["g_lr"])
+
+    def eval_step(x, y, lens):
+        if is_gan:
+            return trainer.eval_step(state, x, y, lens, hp, noise)
+        return trainer.eval_step(state, x, y, lens)
+
+    def gathered(fn, feed, st, le, t_pad, *lr):
+        tables = (feed.inputs_tbl, feed.labels_tbl, st, le)
+        if is_gan:
+            return fn(state, *tables, hp, noise, t_pad, left, right)
+        return fn(state, *tables, *lr, t_pad, left, right)
 
     feed_plan = decide_device_feed(args, tr_store, cv_store, device)
     feed_tr = feed_cv = None
@@ -592,13 +698,12 @@ def run_sequence_training(args) -> int:
             for indices, t_pad in dispatch_plans(batchers, steps_per_call):
                 st, le = feed_tr.plan(indices)
                 true_frames += int(le.sum())
-                tr_accum.append(trainer.train_step_gathered(
-                    state, feed_tr.inputs_tbl, feed_tr.labels_tbl,
-                    *plan_to_device(st, le, device), hp, noise, t_pad,
-                    left, right))
+                tr_accum.append(gathered(
+                    trainer.train_step_gathered, feed_tr,
+                    *plan_to_device(st, le, device), t_pad, hp["g_lr"]))
                 snapper.maybe(state)
             tr_m = _avg(tr_accum) if tr_accum else None
-        elif not args.same_batch:
+        elif is_gan and not args.same_batch:
             # graph-fed: D and G steps on successive minibatches of the
             # stream, until it runs out (wherever that falls)
             d_accum, g_accum = [], []
@@ -626,8 +731,7 @@ def run_sequence_training(args) -> int:
             for batch in ThreadedPrefetcher(
                     (tr_batches._make_batch(ix) for ix, _ in plans), 32):
                 true_frames += int(batch.lengths.sum())
-                tr_accum.append(trainer.train_step(
-                    state, *on_device(batch), hp, noise))
+                tr_accum.append(train_step(*on_device(batch)))
                 snapper.maybe(state)
             tr_m = _avg(tr_accum) if tr_accum else None
         if tr_m is None:
@@ -639,16 +743,14 @@ def run_sequence_training(args) -> int:
             for indices, t_pad in dispatch_plans([cv_batches],
                                                  steps_per_call):
                 st, le = feed_cv.plan(indices)
-                cv_accum.append(trainer.eval_step_gathered(
-                    state, feed_cv.inputs_tbl, feed_cv.labels_tbl,
-                    *plan_to_device(st, le, device), hp, noise, t_pad,
-                    left, right))
+                cv_accum.append(gathered(
+                    trainer.eval_step_gathered, feed_cv,
+                    *plan_to_device(st, le, device), t_pad))
         else:
             plans = dispatch_plans([cv_batches], steps_per_call)
             for batch in ThreadedPrefetcher(
                     (cv_batches._make_batch(ix) for ix, _ in plans), 32):
-                cv_accum.append(trainer.eval_step(
-                    state, *on_device(batch), hp, noise))
+                cv_accum.append(eval_step(*on_device(batch)))
         if not cv_accum:
             log("ERROR: empty cv batch stream")
             return 1
@@ -674,9 +776,9 @@ def run_sequence_training(args) -> int:
             f"{train_secs:.1f} s train section, {len(tr_accum)} steps on "
             f"{device}){rot_note}\n"
             f"{iteration + 1}/{n_iterations} (TRAIN AVG.LOSS): "
-            f"{_fmt(tr_m, GAN_METRICS)}\n"
+            f"{_fmt(tr_m, metric_keys)}\n"
             f"{iteration + 1}/{n_iterations} (CROSS AVG.LOSS): "
-            f"{_fmt(cv_m, GAN_METRICS)}")
+            f"{_fmt(cv_m, metric_keys)}")
         tr_row = {**tr_m, "train_frames_per_sec": fps,
                   "train_secs": train_secs, "train_steps": len(tr_accum),
                   "g_lr": hp["g_lr"], "d_lr": hp["d_lr"]}
@@ -710,6 +812,143 @@ def run_sequence_training(args) -> int:
         if tracker.should_stop(iteration, min_stop_iters):
             log(f"Iteration {iteration + 1}: Finished, too small relative "
                 f"G improvement {tracker.rel_impr:g}")
+            break
+    tr_writer.close()
+    cv_writer.close()
+    log("Training Done.")
+    return 0
+
+
+def run_frame_training(args) -> int:
+    """The frame loop of the JAX CLI (``run_frame_training``) for
+    --trainer=dnn and --trainer=gan_dnn, in f32: shuffled frame batches
+    through a prefetch thread, a CV pass before the first epoch, then per
+    epoch the train pass, the CV pass, and an accept (checkpoint) or a
+    reject, which reloads the last checkpoint into the whole state
+    (params, optimizer moments, EMA, batch statistics, step) and drops
+    the periodic snapshot. The staged decay steps the MSE trainer's
+    learning rate when the relative CV improvement falls below
+    --start_decay_impr from epoch --keep_lr on; below --end_decay_impr the
+    run stops, once --min_epoches have run. As in JAX, the frame GAN's
+    steps keep the initial hp and only its log shows the staged rate."""
+    if args.num_gpu > 1:
+        raise NotImplementedError(
+            f"--num_gpu={args.num_gpu} (data-parallel training) is not "
+            f"ported yet; {_ROADMAP}, 'Parallel'")
+    device = resolve_device(args.device)
+    trainer = build_trainer(args, device, torch.float32)
+    is_gan = args.trainer == "gan_dnn"
+    metric_keys = GAN_METRICS if is_gan else MSE_METRICS
+    name = model_name(args)
+    left, right = args.left_context, args.right_context
+
+    tr_store = UtteranceStore(read_list_file(args.tr_list_file))
+    cv_store = UtteranceStore(read_list_file(args.cv_list_file))
+    tr_batches = FrameBatcher(tr_store, args.batch_size, left, right,
+                              seed=args.seed)
+    cv_batches = FrameBatcher(cv_store, args.batch_size, left, right,
+                              shuffle=False, seed=args.seed)
+    log(f"LOG: #train_batch = {tr_batches.num_batches()}, "
+        f"#valid_batch = {cv_batches.num_batches()}")
+    # the JAX CLI draws its init example from the train batcher, which
+    # takes the first permutation; the port needs no example but takes it
+    # too, so that its epochs see the JAX permutations
+    next(tr_batches.iter_index_batches(), None)
+
+    state = trainer.init_state()
+    restored, restore_src = restore_state(args, name, state)
+    log(f"[*] Load SUCCESS ({restore_src})" if restored
+        else "[!] Begin a new model.")
+    snapper = PeriodicSnapshotter(args.save_dir, name,
+                                  args.checkpoint_every_secs)
+    log_variables(state)
+    hp = make_hparams(args)
+    g_lr = args.g_learning_rate
+    tr_writer = MetricsWriter(args.save_dir, "train", args.tensorboard)
+    cv_writer = MetricsWriter(args.save_dir, "eval", args.tensorboard)
+
+    def on_device(x, y):
+        return (torch.from_numpy(x).to(device),
+                torch.from_numpy(y).to(device))
+
+    def eval_epoch():
+        accum = []
+        for x, y in cv_batches:
+            if is_gan:
+                accum.append(trainer.eval_step(state, *on_device(x, y),
+                                               None, hp))
+            else:
+                accum.append(trainer.eval_step(state, *on_device(x, y),
+                                               None))
+        return _avg(accum) if accum else None
+
+    cv_m = eval_epoch()
+    if cv_m is None:
+        log("ERROR: empty cv batch stream")
+        return 1
+    log(f"CROSSVAL.LOSS PRERUN: {_fmt(cv_m, metric_keys)}")
+    g_loss_prev = cv_m["g_loss"]
+    decay_steps = 1
+
+    for epoch in range(args.max_epoches):
+        start = datetime.datetime.now()
+        tr_accum = []
+        for x, y in ThreadedPrefetcher(iter(tr_batches), 32):
+            xy = on_device(x, y)
+            if is_gan:
+                tr_accum.append(trainer.train_step(state, *xy, None, hp))
+            else:
+                tr_accum.append(trainer.train_step(state, *xy, None, g_lr))
+            snapper.maybe(state)
+        if not tr_accum:
+            log("ERROR: empty train batch stream")
+            return 1
+        tr_m = _avg(tr_accum)   # reads the metrics back: the pass is done
+        train_secs = (datetime.datetime.now() - start).total_seconds()
+        cv_m = eval_epoch()
+        took = (datetime.datetime.now() - start).total_seconds()
+        frames = len(tr_accum) * args.batch_size
+        fps = frames / max(train_secs, 1e-9)
+        log(f"Epoch {epoch + 1} (TRAIN AVG.LOSS): {_fmt(tr_m, metric_keys)},"
+            f" learning_rate= {g_lr:.3e}\n"
+            f"Epoch {epoch + 1} (CROSS AVG.LOSS): {_fmt(cv_m, metric_keys)},"
+            f" TIME USED {took / 3600.0:.2f} h\n"
+            f"Epoch {epoch + 1} (SPEED): train_frames_per_sec = {fps:.0f} "
+            f"({train_secs:.1f} s train section, {len(tr_accum)} steps on "
+            f"{device})")
+        tr_writer.write(epoch + 1, {**tr_m, "train_frames_per_sec": fps,
+                                    "train_secs": train_secs,
+                                    "train_steps": len(tr_accum),
+                                    "learning_rate": g_lr})
+        cv_writer.write(epoch + 1, cv_m)
+
+        g_loss_new = cv_m["g_loss"]
+        g_rel_impr = (g_loss_prev - g_loss_new) / g_loss_prev
+        if g_loss_new < g_loss_prev:
+            save_checkpoint(args.save_dir, name, state_tree(state),
+                            epoch + 1, meta=ckpt_meta(args))
+            log(f"Epoch {epoch + 1}: Nnet Accepted. Save model SUCCESS.")
+            g_loss_prev = g_loss_new
+        else:
+            log(f"Epoch {epoch + 1}: Nnet Rejected.")
+            if load_checkpoint(args.save_dir, name, state) is None:
+                log("[!] Load failed. No checkpoint to restore. Exit now.")
+                return 1
+            snapper.invalidate()
+            log("[*] Load previous model SUCCESS.")
+
+        if g_rel_impr < args.start_decay_impr and \
+                epoch + 1 >= args.keep_lr:
+            g_lr = staged_decay(args.g_learning_rate, args.decay_factor,
+                                decay_steps)
+            decay_steps += 1
+        if g_rel_impr < args.end_decay_impr:
+            if epoch < args.min_epoches:
+                log(f"Epoch {epoch + 1}: We were supposed to finish, but we "
+                    f"continue as min_epoches {args.min_epoches}")
+                continue
+            log(f"Epoch {epoch + 1}: Finished, too small relative G "
+                f"improvement {g_rel_impr:g}")
             break
     tr_writer.close()
     cv_writer.close()
@@ -840,9 +1079,18 @@ def apply_flag_aliases(args) -> None:
             setattr(args, canonical, value)
 
 
+def set_precision() -> None:
+    """f32 means f32 on a card: no TF32 in matmuls or in cuDNN's
+    convolutions (the frame models'), where PyTorch's default for the
+    latter is TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main(argv=None) -> int:
     args, unparsed = build_parser().parse_known_args(argv)
     apply_flag_aliases(args)
+    set_precision()
     log("*** Parsed arguments ***")
     log(json.dumps(vars(args), indent=1, default=str))
     if unparsed:
@@ -852,7 +1100,9 @@ def main(argv=None) -> int:
             f"multi-process runs are not ported yet; {_ROADMAP}, 'Parallel'")
     if args.decode:
         return run_decode(args)
-    return run_sequence_training(args)
+    if args.trainer in SEQUENCE_TRAINERS:
+        return run_sequence_training(args)
+    return run_frame_training(args)   # dnn, gan_dnn (segan raises)
 
 
 if __name__ == "__main__":

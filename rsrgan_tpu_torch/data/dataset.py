@@ -1,9 +1,9 @@
-"""Sequence batches (numpy copy of ``rsrgan_tpu/data/dataset.py``:
+"""Sequence and frame batches (numpy copy of ``rsrgan_tpu/data/dataset.py``:
 ``bucket_id``, ``padded_length``, ``SequenceBatch``, ``SequenceBatcher``,
-``infer_batches`` and ``ThreadedPrefetcher``). With the same seed the
-batcher gives the same batches as the JAX package's, in the same order.
-The frame batchers and the host-sharded views are not ported (ROADMAP.md,
-Queue 1)."""
+``FrameBatcher``, ``infer_batches`` and ``ThreadedPrefetcher``). With the
+same seed a batcher gives the same batches as the JAX package's, in the
+same order. The host-sharded views are not ported (ROADMAP.md, Queue 1,
+'Parallel')."""
 
 from __future__ import annotations
 
@@ -144,6 +144,62 @@ class SequenceBatcher:
     def __iter__(self) -> Iterator[SequenceBatch]:
         for indices in self.iter_index_batches():
             yield self._make_batch(indices)
+
+
+class FrameBatcher:
+    """Shuffled frame batches for the frame models (DNN, R-CED, CNN).
+
+    Every utterance is spliced once into one flat frame table (inputs
+    ``[N, splice * D]``, labels ``[N, out]``, f32); each epoch draws a
+    fresh permutation of its rows from ``default_rng(seed)`` and cuts it
+    into ``batch_size`` rows; ``drop_remainder`` drops the last partial
+    batch. Batches are ``(inputs, labels)`` (labels None for a store
+    without them)."""
+
+    def __init__(self, store: UtteranceStore, batch_size: int,
+                 left_context: int = 0, right_context: int = 0,
+                 shuffle: bool = True, drop_remainder: bool = True,
+                 seed: int = 777):
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
+        self._rng = np.random.default_rng(seed)
+        ins, labs = [], []
+        for i in range(len(store)):
+            ins.append(splice_frames_np(np.asarray(store.inputs(i)),
+                                        left_context, right_context))
+            if store.has_labels:
+                labs.append(np.asarray(store.labels(i)))
+        self.inputs = np.concatenate(ins, axis=0).astype(np.float32)
+        self.labels = (np.concatenate(labs, axis=0).astype(np.float32)
+                       if labs else None)
+
+    @property
+    def num_frames(self) -> int:
+        return self.inputs.shape[0]
+
+    def num_batches(self) -> int:
+        if self.drop_remainder:
+            return self.num_frames // self.batch_size
+        return -(-self.num_frames // self.batch_size)
+
+    def iter_index_batches(self) -> Iterator[np.ndarray]:
+        """The epoch's batch plan as frame-index arrays."""
+        order = np.arange(self.num_frames)
+        if self.shuffle:
+            self._rng.shuffle(order)
+        stop = (self.num_frames - self.num_frames % self.batch_size
+                if self.drop_remainder else self.num_frames)
+        for start in range(0, stop, self.batch_size):
+            yield order[start:start + self.batch_size]
+
+    def _make_batch(self, sel: np.ndarray):
+        return (self.inputs[sel],
+                self.labels[sel] if self.labels is not None else None)
+
+    def __iter__(self):
+        for sel in self.iter_index_batches():
+            yield self._make_batch(sel)
 
 
 class ThreadedPrefetcher:

@@ -1,8 +1,10 @@
 """Model registry of the port (``rsrgan_tpu/models/__init__.py``).
 
-Generators: ``lstm`` and the residual-LSTM family; every other
-``--g_type`` raises ``NotImplementedError`` naming its ROADMAP.md item.
-Discriminators: the sequence LSTM-D; the frame DNN-D raises likewise.
+Generators: the sequence models ``lstm`` and the residual-LSTM family,
+and the frame models ``dnn``, ``rced`` and ``cnn``; ``bnlstm`` raises
+``NotImplementedError`` naming its ROADMAP.md item. Discriminators: the
+sequence LSTM-D and the frame DNN-D. ``models/bridge.py`` carries flax
+trees (params and ``batch_stats``) in and out.
 """
 
 from __future__ import annotations
@@ -11,44 +13,57 @@ from typing import Optional
 
 import torch
 
-from rsrgan_tpu_torch.models.discriminators import LstmDiscriminator
+from rsrgan_tpu_torch.models.bridge import (batch_stats_tree, flatten_tree,
+                                            load_batch_stats,
+                                            load_flax_params, module_tree,
+                                            unflatten_tree)
+from rsrgan_tpu_torch.models.discriminators import (DnnDiscriminator,
+                                                    LstmDiscriminator)
+from rsrgan_tpu_torch.models.feedforward import (CnnGenerator, DnnGenerator,
+                                                 RcedGenerator)
 from rsrgan_tpu_torch.models.recurrent import (LstmGenerator,
-                                               ResLstmGenerator,
-                                               flatten_tree,
-                                               load_flax_params, module_tree,
-                                               unflatten_tree)
+                                               ResLstmGenerator)
 
 SEQUENCE_G_TYPES = ("lstm", "bnlstm", "res_lstm_base", "res_lstm_i",
                     "res_lstm_l")
 FRAME_G_TYPES = ("dnn", "rced", "cnn")
 
-_NOT_PORTED = {
-    "bnlstm": "Queue 1, 'BNLSTM and SEGAN'",
-    "dnn": "Queue 1, 'MSE and frame trainers'",
-    "rced": "Queue 1, 'MSE and frame trainers'",
-    "cnn": "Queue 1, 'MSE and frame trainers'",
-}
-
 
 def get_generator(g_type: str, *, input_dim: int, output_dim: int,
-                  keep_prob: float = 1.0,
+                  left_context: int = 0, right_context: int = 0,
+                  keep_prob: float = 1.0, batch_norm: bool = False,
                   compute_dtype: torch.dtype = torch.float32,
                   lstm_impl: str = "wavefront",
                   generator: Optional[torch.Generator] = None):
+    """``input_dim`` is one frame's width; a model sees ``input_dim *
+    (left_context + 1 + right_context)`` (spliced frames). ``batch_norm``
+    reaches ``dnn`` and ``rced`` (as in JAX, ``cnn`` and the sequence
+    models have none); the frame models run in f32."""
+    splice = left_context + 1 + right_context
+    width = input_dim * splice
     if g_type == "lstm":
-        return LstmGenerator(input_dim, output_dim, keep_prob=keep_prob,
+        return LstmGenerator(width, output_dim, keep_prob=keep_prob,
                              compute_dtype=compute_dtype,
                              lstm_impl=lstm_impl, generator=generator)
     if g_type in ("res_lstm_base", "res_lstm_i", "res_lstm_l"):
-        return ResLstmGenerator(input_dim, output_dim,
+        return ResLstmGenerator(width, output_dim,
                                 variant=g_type.rsplit("_", 1)[-1],
                                 keep_prob=keep_prob,
                                 compute_dtype=compute_dtype,
                                 lstm_impl=lstm_impl, generator=generator)
-    if g_type in _NOT_PORTED:
+    if g_type == "dnn":
+        return DnnGenerator(width, output_dim, keep_prob=keep_prob,
+                            batch_norm=batch_norm, generator=generator)
+    if g_type == "rced":
+        return RcedGenerator(input_dim, splice, output_dim,
+                             batch_norm=batch_norm, generator=generator)
+    if g_type == "cnn":
+        return CnnGenerator(input_dim, splice, output_dim,
+                            generator=generator)
+    if g_type == "bnlstm":
         raise NotImplementedError(
-            f"g_type {g_type} is not ported yet; see ROADMAP.md, "
-            f"{_NOT_PORTED[g_type]}")
+            "g_type bnlstm is not ported yet; see ROADMAP.md, Queue 1, "
+            "'BNLSTM and SEGAN'")
     raise ValueError(f"Unrecognized G type {g_type}")
 
 
@@ -57,14 +72,14 @@ def get_discriminator(d_type: str = "lstm", *, input_dim: int = 40,
                       compute_dtype: torch.dtype = torch.float32,
                       lstm_impl: str = "scan",
                       generator: Optional[torch.Generator] = None):
-    """LSTM-D at its reference sizes: 2 x LSTM(256, proj 40) on
-    ``input_dim``-wide frames (G's output dim; 40 in the reference)."""
+    """LSTM-D at its reference sizes (2 x LSTM(256, proj 40)) or DNN-D
+    (4 x Dense(1024)), on ``input_dim``-wide frames (G's output dim, 40
+    in the reference; the conditioned frame D adds the input frame's)."""
     if d_type == "lstm":
         return LstmDiscriminator(input_dim=input_dim, keep_prob=keep_prob,
                                  compute_dtype=compute_dtype,
                                  lstm_impl=lstm_impl, generator=generator)
     if d_type == "dnn":
-        raise NotImplementedError(
-            "the frame discriminator (DNN-D) is not ported yet; see "
-            "ROADMAP.md, Queue 1, 'MSE and frame trainers'")
+        return DnnDiscriminator(input_dim, keep_prob=keep_prob,
+                                generator=generator)
     raise ValueError(f"Unrecognized D type {d_type}")

@@ -1,18 +1,20 @@
-"""The sequence discriminator LSTM-D (counterpart of
-``rsrgan_tpu/models/discriminators.py`` ``LstmDiscriminator``).
+"""The discriminators (counterpart of ``rsrgan_tpu/models/
+discriminators.py``): the sequence LSTM-D and the frame DNN-D.
 
-Parameter names and layouts are the JAX ones (``StackedLstm_0/cell_{0,1}``,
-``Dense_0/{kernel,bias}``), so a flax checkpoint's D tree loads by name.
+Parameter names and layouts are the JAX ones (``StackedLstm_0/cell_{0,1}``
+and ``Dense_0`` for LSTM-D, ``Dense_{0..4}`` for DNN-D), so a flax
+checkpoint's D tree loads by name.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
 from torch import nn
 
-from rsrgan_tpu_torch.ops.common import MaskSource, gaussian_noise
+from rsrgan_tpu_torch.ops.common import MaskSource, dropout, gaussian_noise
 from rsrgan_tpu_torch.ops.lstm import StackedLstm
 from rsrgan_tpu_torch.ops.modules import Dense
 
@@ -61,3 +63,45 @@ class LstmDiscriminator(nn.Module):
             impl = "pallas"
         return self.Dense_0(self.StackedLstm_0(h, lengths, train, impl,
                                                masks))
+
+
+class DnnDiscriminator(nn.Module):
+    """The frame discriminator: ``Dense(units)`` + ReLU [+ dropout],
+    ``1 + hidden_layers`` times, their kernels drawn from a normal
+    truncated to 2 standard deviations and scaled by sqrt(2 / units)
+    (jax's ``truncated_normal``), then a glorot ``Dense(1)`` clipped to
+    [-0.5, 1.5]: ``[B, input_dim] -> [B, 1]``. No input noise, no
+    lengths."""
+
+    def __init__(self, input_dim: int, units: int = 1024,
+                 hidden_layers: int = 3, keep_prob: float = 1.0,
+                 clip_output: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.keep_prob = keep_prob
+        self.clip_output = clip_output
+        self.num_hidden = 1 + hidden_layers
+        stddev = math.sqrt(2.0 / units)
+        width = input_dim
+        for k in range(self.num_hidden):
+            layer = Dense(width, units, generator)
+            with torch.no_grad():
+                nn.init.trunc_normal_(layer.kernel, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                layer.kernel.mul_(stddev)
+            self.add_module(f"Dense_{k}", layer)
+            width = units
+        self.add_module(f"Dense_{self.num_hidden}",
+                        Dense(width, 1, generator))
+
+    def forward(self, inputs: torch.Tensor, train: bool = False,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
+        """``masks``: the dropout's mask source, used in train mode with
+        ``keep_prob < 1``."""
+        h = inputs
+        for k in range(self.num_hidden):
+            h = torch.relu(getattr(self, f"Dense_{k}")(h))
+            if train and self.keep_prob < 1.0:
+                h = dropout(h, self.keep_prob, masks)
+        y = getattr(self, f"Dense_{self.num_hidden}")(h)
+        return torch.clamp(y, -0.5, 1.5) if self.clip_output else y

@@ -1,12 +1,11 @@
 """The recurrent generators (``rsrgan_tpu/models/recurrent.py``
-``LstmGenerator`` and the ``ResLstmGenerator`` family) and the weight
-bridge from JAX parameter trees.
+``LstmGenerator`` and the ``ResLstmGenerator`` family).
 
 Parameter names and layouts are the JAX ones (``lstm_cell_{1..4}/{kernel,
 bias,proj_kernel,w_i_diag,w_f_diag,w_o_diag}``, ``forward_out/{kernel,
 bias}``; ``Dense_0``, ``StackedLstm_0/cell_{0,1,2}``, ``Dense_1``;
 ``kernel [D+P, 4U]``, dense ``kernel [in, out]``), so ``load_flax_params``
-copies a flax checkpoint's G tree in by name. The
+(``models/bridge.py``) copies a flax checkpoint's G tree in by name. The
 JAX package needs a parameter-only ``_CellParams`` twin to give the
 wavefront path the scan path's tree; here ``LstmCellP`` holds the
 parameters and serves both paths.
@@ -14,9 +13,8 @@ parameters and serves both paths.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -160,63 +158,3 @@ class LstmGenerator(nn.Module):
         h = leakyrelu(self.Dense_0(inputs))
         h = self.StackedLstm_0(h, lengths, train, masks=masks)
         return self.Dense_1(h)
-
-
-def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, object]:
-    """Nested dicts -> {"a.b.c": leaf} (the module's parameter names)."""
-    flat = {}
-    for key, value in tree.items():
-        name = f"{prefix}.{key}" if prefix else key
-        if isinstance(value, Mapping):
-            flat.update(flatten_tree(value, name))
-        else:
-            flat[name] = value
-    return flat
-
-
-def unflatten_tree(flat: Mapping[str, object]) -> dict:
-    """{"a.b.c": leaf} -> nested dicts with every level's keys sorted, the
-    order in which ``jax.tree`` rebuilds (and flax then saves) a tree."""
-    tree: dict = {}
-    for name in sorted(flat):
-        node = tree
-        *path, leaf = name.split(".")
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = flat[name]
-
-    def sort(node):
-        return {k: sort(v) if isinstance(v, dict) else v
-                for k, v in sorted(node.items())}
-
-    return sort(tree)
-
-
-def module_tree(module: nn.Module) -> dict:
-    """The module's parameters as a JAX-layout tree of f32 numpy arrays."""
-    return unflatten_tree({name: p.detach().float().cpu().numpy()
-                           for name, p in module.named_parameters()})
-
-
-def load_flax_params(module: nn.Module, tree: Mapping) -> None:
-    """Copy a JAX parameter tree (nested dicts of numpy arrays, as read
-    from a flax checkpoint) into ``module`` by name.
-
-    Every parameter of the module must be in the tree with the same shape
-    and every array of the tree must be a parameter of the module, so a
-    checkpoint of another model fails here and not as wrong output.
-    """
-    flat = flatten_tree(tree)
-    params = dict(module.named_parameters())
-    missing = sorted(set(params) - set(flat))
-    unexpected = sorted(set(flat) - set(params))
-    if missing or unexpected:
-        raise KeyError(f"parameter tree mismatch: missing {missing}, "
-                       f"unexpected {unexpected}")
-    with torch.no_grad():
-        for name, param in params.items():
-            value = np.array(flat[name], dtype=np.float32)
-            if tuple(value.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: checkpoint shape {value.shape} "
-                                 f"!= module shape {tuple(param.shape)}")
-            param.copy_(torch.from_numpy(value).to(param.device))

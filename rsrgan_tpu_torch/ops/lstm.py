@@ -38,8 +38,11 @@ from rsrgan_tpu_torch.ops.wavefront_stack import lstm_stack_wavefront
 def glorot_uniform_(t: torch.Tensor,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-    """In-place Glorot-uniform init of a 2-D tensor (flax's default)."""
-    fan_in, fan_out = t.shape
+    """In-place Glorot-uniform init (flax's default): a 2-D ``[in, out]``
+    kernel, or a convolution kernel ``[kh, kw, in, out]`` (HWIO), whose
+    fans count its receptive field, as jax's ``variance_scaling`` does."""
+    *field, fan_in, fan_out = t.shape
+    fan_in, fan_out = fan_in * math.prod(field), fan_out * math.prod(field)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     with torch.no_grad():
         u = torch.rand(t.shape, generator=generator, dtype=torch.float32)

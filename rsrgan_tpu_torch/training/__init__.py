@@ -1,10 +1,12 @@
 """Training layer of the port: checkpoints and periodic snapshots (flax
 msgpack, the whole train state), losses, optimizers and EMA, schedules,
-TensorBoard event files, and the LSGAN trainer."""
+TensorBoard event files, the LSGAN trainer (sequence and frame) and the
+MSE trainer."""
 
 from rsrgan_tpu_torch.training.checkpoints import (latest_checkpoint,
                                                    load_checkpoint,
                                                    load_generator_params,
+                                                   load_generator_state,
                                                    load_newest_state,
                                                    load_state_tree,
                                                    msgpack_restore,
@@ -17,6 +19,8 @@ from rsrgan_tpu_torch.training.checkpoints import (latest_checkpoint,
                                                    state_tree)
 from rsrgan_tpu_torch.training.gan import (GanState, GanTrainer,
                                            default_hparams)
+from rsrgan_tpu_torch.training.mse import MseState, MseTrainer
 from rsrgan_tpu_torch.training.schedules import (ImprovementTracker,
-                                                 exponential_decay)
+                                                 exponential_decay,
+                                                 staged_decay)
 from rsrgan_tpu_torch.training.state import NetState, make_optimizer

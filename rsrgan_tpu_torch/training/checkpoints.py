@@ -290,9 +290,9 @@ def save_checkpoint(save_dir: str, name: str, state: Any, step: int,
                     max_to_keep: int = 10) -> str:
     """Write a state tree (nested dicts of numpy arrays, in the layout
     flax's ``to_bytes`` gives; ``state_tree`` makes one from a
-    ``GanState``) as ``{name}-{step}.ckpt`` plus the ``checkpoint``
-    pointer and the optional ``.meta.json`` sidecar, each atomically, and
-    keep the newest ``max_to_keep`` checkpoints."""
+    ``GanState`` or ``MseState``) as ``{name}-{step}.ckpt`` plus the
+    ``checkpoint`` pointer and the optional ``.meta.json`` sidecar, each
+    atomically, and keep the newest ``max_to_keep`` checkpoints."""
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, f"{name}-{step}.ckpt")
     with open(path + ".tmp", "wb") as f:
@@ -334,21 +334,38 @@ def read_checkpoint(path: str) -> dict:
         return msgpack_restore(f.read())
 
 
-def generator_params(state: dict, moving_average: bool = False) -> dict:
-    """G's parameter tree from a GanState (``g``) or MseState (``net``)
-    state dict; ``moving_average`` takes the EMA shadow instead
-    (the JAX ``load_checkpoint(..., moving_average=True)`` swap)."""
+def generator_state(state: dict, moving_average: bool = False
+                    ) -> Tuple[dict, Optional[dict]]:
+    """G's parameter tree and its ``extra`` (``{"batch_stats": ...}``
+    or None) from a GanState (``g``) or MseState (``net``) state dict;
+    ``moving_average`` takes the EMA shadow for the params (the JAX
+    ``load_checkpoint(..., moving_average=True)`` swap; the batch
+    statistics stay)."""
     net = state["g"] if "g" in state else state["net"]
-    return net["ema" if moving_average else "params"]
+    return net["ema" if moving_average else "params"], net.get("extra")
+
+
+def generator_params(state: dict, moving_average: bool = False) -> dict:
+    """G's parameter tree alone (``generator_state``)."""
+    return generator_state(state, moving_average)[0]
+
+
+def load_generator_state(save_dir: str, name: str,
+                         moving_average: bool = False
+                         ) -> Optional[Tuple[dict, Optional[dict]]]:
+    """(G params, G extra) of the newest checkpoint, or None when there
+    is none."""
+    path = latest_checkpoint(save_dir, name)
+    if path is None or not os.path.isfile(path):
+        return None
+    return generator_state(read_checkpoint(path), moving_average)
 
 
 def load_generator_params(save_dir: str, name: str,
                           moving_average: bool = False) -> Optional[dict]:
     """G params of the newest checkpoint, or None when there is none."""
-    path = latest_checkpoint(save_dir, name)
-    if path is None or not os.path.isfile(path):
-        return None
-    return generator_params(read_checkpoint(path), moving_average)
+    found = load_generator_state(save_dir, name, moving_average)
+    return None if found is None else found[0]
 
 
 # ---------------------------------------------------------------------------
@@ -374,24 +391,33 @@ def _opt_tree(tx, opt_state: dict) -> dict:
     return {"0": {}, "1": core}
 
 
+def _nets(state) -> Tuple[str, ...]:
+    """The state's networks: ``net`` of an MseState, ``g`` and ``d`` of a
+    GanState, in the JAX dataclasses' field order."""
+    return ("net",) if hasattr(state, "net") else ("g", "d")
+
+
 def state_tree(state) -> dict:
-    """A ``GanState`` as the tree flax's ``to_bytes`` writes for the JAX
-    ``GanState`` after a train step (every inner dict's keys sorted)."""
+    """A ``GanState`` or ``MseState`` as the tree flax's ``to_bytes``
+    writes for the JAX state after a train step (every inner dict's keys
+    sorted; ``extra`` None or ``{"batch_stats": ...}``)."""
     from rsrgan_tpu_torch.models import module_tree
 
     def net(ns):
         return {"params": module_tree(ns.module),
                 "opt_state": _opt_tree(ns.tx, ns.opt_state),
-                "ema": _np_tree(ns.ema), "extra": None}
+                "ema": _np_tree(ns.ema), "extra": ns.extra()}
 
-    return {"g": net(state.g), "d": net(state.d),
-            "step": np.asarray(state.step, np.int32)}
+    tree = {key: net(getattr(state, key)) for key in _nets(state)}
+    tree["step"] = np.asarray(state.step, np.int32)
+    return tree
 
 
 def load_state_tree(state, tree: dict) -> None:
-    """Copy a checkpoint's tree (a JAX ``GanState``, or one ``state_tree``
-    wrote) into ``state`` in place: params, EMA, optimizer state, step.
-    Fails on any missing or extra leaf."""
+    """Copy a checkpoint's tree (a JAX ``GanState`` or ``MseState``, or
+    one ``state_tree`` wrote) into ``state`` in place: params, EMA,
+    optimizer state, ``extra`` (the BatchNorm statistics), step. Fails
+    on any missing or extra leaf."""
     import torch
 
     from rsrgan_tpu_torch.models import flatten_tree, load_flax_params
@@ -403,9 +429,10 @@ def load_state_tree(state, tree: dict) -> None:
         return {k: torch.from_numpy(np.array(flat[k], np.float32)).to(
             like[k].device) for k in like}
 
-    for key in ("g", "d"):
+    for key in _nets(state):
         ns, node = getattr(state, key), tree[key]
         load_flax_params(ns.module, node["params"])
+        ns.load_extra(node.get("extra"))
         ns.ema = tensors(node["ema"], ns.ema)
         core = node["opt_state"]["1"]
         for field, value in ns.opt_state.items():

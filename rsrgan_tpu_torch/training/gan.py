@@ -23,6 +23,12 @@ kept apart (``g_masks``, ``d_masks``; ``seed_dropout`` seeds two
 generators), as JAX draws G's from their own stream and D's from
 ``fold_in(noise_rng, 1)``; D drops out in train mode only.
 
+``frame_mode`` is the frame LSGAN (``--trainer=gan_dnn``): G takes
+spliced frames without lengths, D (DNN-D) takes ``[B, width]`` frames
+without noise or lengths; the CLI builds it with Adam for both nets, no
+clipping, and D always conditioned. A G with BatchNorm layers is refused:
+the JAX ``GanTrainer`` keeps no ``batch_stats`` and cannot run one.
+
 ``train_step_gathered`` and ``eval_step_gathered`` first assemble their
 batch on the device from resident tables and a ``[B]`` plan
 (``ops/gather.py``). State is updated in place (the JAX step returns a
@@ -36,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch.models.bridge import batch_stats_tree
 from rsrgan_tpu_torch.ops.common import MaskSource
 from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
 from rsrgan_tpu_torch.training.losses import (g_mse_loss, l2_loss_nonbias,
@@ -61,7 +68,9 @@ class GanTrainer:
     """Train and eval steps for a (G, D) pair.
 
     generator(inputs [B, T, D], lengths [B], train, masks) -> [B, T, out];
-    discriminator(x, lengths, noise_std, train, noise, masks) -> [B, T, 1].
+    discriminator(x, lengths, noise_std, train, noise, masks) -> [B, T, 1];
+    in ``frame_mode`` generator(frames, train=, masks=) -> [B, out] and
+    discriminator(x, train, masks) -> [B, 1].
     ``grad_log``: set to a list to record, per update, (net, {param name:
     gradient before clipping}). ``g_masks``/``d_masks``: the dropout mask
     sources of G and D (``ops.common.MaskSource``), needed where the net
@@ -74,7 +83,15 @@ class GanTrainer:
                  gen_updates: int = 2, l2_scale: float = 0.0,
                  max_grad_norm: Optional[float] = 15.0,
                  ema_decay: float = 0.9999, g_optimizer: str = "adam",
-                 d_optimizer: str = "sgd", d_conditioned: bool = False):
+                 d_optimizer: str = "sgd", d_conditioned: bool = False,
+                 frame_mode: bool = False):
+        if batch_stats_tree(generator) is not None:
+            raise ValueError(
+                "GanTrainer cannot train a generator with BatchNorm layers "
+                "(--trainer=gan_dnn --batch_norm with --g_type=dnn or "
+                "rced): the JAX GanTrainer keeps no batch_stats, so the "
+                "JAX package fails on the first step with "
+                "ScopeCollectionNotFound; train without --batch_norm")
         self.generator = generator
         self.discriminator = discriminator
         self.output_dim = output_dim
@@ -86,6 +103,7 @@ class GanTrainer:
         self.max_grad_norm = max_grad_norm
         self.ema_decay = ema_decay
         self.d_conditioned = d_conditioned
+        self.frame_mode = frame_mode
         self.g_optimizer, self.d_optimizer = g_optimizer, d_optimizer
         self.grad_log: Optional[List[Tuple[str, dict]]] = None
         self.g_masks: Optional[MaskSource] = None
@@ -98,12 +116,17 @@ class GanTrainer:
         self.d_masks = torch.Generator(device=device).manual_seed(seed + 1)
 
     def _g(self, inputs, lengths, train: bool):
-        return self.generator(inputs, lengths, train,
-                              masks=self.g_masks if train else None)
+        masks = self.g_masks if train else None
+        if self.frame_mode:
+            return self.generator(inputs, train=train, masks=masks)
+        return self.generator(inputs, lengths, train, masks=masks)
 
     def _d(self, x, lengths, hp, train: bool, noise):
+        masks = self.d_masks if train else None
+        if self.frame_mode:
+            return self.discriminator(x, train, masks)
         return self.discriminator(x, lengths, hp["disc_noise_std"], train,
-                                  noise, self.d_masks if train else None)
+                                  noise, masks)
 
     def init_state(self) -> GanState:
         return GanState(

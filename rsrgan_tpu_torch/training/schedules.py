@@ -24,6 +24,14 @@ def exponential_decay(iteration: int, num_jobs: int, num_iters: int,
     return current
 
 
+def staged_decay(init_lr: float, decay_factor: float,
+                 decay_steps: int) -> float:
+    """The frame trainers' staged decay: ``init_lr * decay_factor **
+    decay_steps``, stepped whenever the CV improvement falls below
+    ``start_decay_impr``."""
+    return init_lr * decay_factor ** decay_steps
+
+
 class ImprovementTracker:
     """Windowed relative-improvement accept/reject bookkeeping: collect CV
     losses into a window; at each check interval compare the window mean

@@ -10,7 +10,10 @@ and orders the operations otherwise, so the port writes them out. The
 optimizer state keeps optax's layout, so that a checkpoint carries it
 both ways: ``{"count": int32 [], "mu": {...}, "nu": {...}}`` for Adam,
 ``{"nu": {...}}`` for RMSProp, nothing for SGD; trees are dicts keyed by
-the parameter's dotted name. Updates are in place.
+the parameter's dotted name. Updates are in place. A module's mutable
+collections (the BatchNorm running statistics, flax's ``batch_stats``)
+are its buffers: ``NetState.extra`` reads them as the JAX ``NetState.extra``
+tree, outside the EMA and the optimizer.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from rsrgan_tpu_torch.models.bridge import batch_stats_tree, load_batch_stats
 
 Tree = Dict[str, torch.Tensor]
 
@@ -123,6 +128,22 @@ class NetState:
 
     def params(self) -> Tree:
         return dict(self.module.named_parameters())
+
+    def extra(self) -> Optional[dict]:
+        """The JAX ``NetState.extra``: ``{"batch_stats": tree}`` of numpy
+        arrays for a module with BatchNorm layers, else None. A train-mode
+        forward updates it in place; the EMA and the optimizer never see
+        it."""
+        stats = batch_stats_tree(self.module)
+        return None if stats is None else {"batch_stats": stats}
+
+    def load_extra(self, extra: Optional[dict]) -> None:
+        """Copy a JAX ``NetState.extra`` tree into the module's buffers;
+        None for a module without any."""
+        if extra is not None and set(extra) != {"batch_stats"}:
+            raise KeyError(f"unknown mutable collections {sorted(extra)}")
+        load_batch_stats(self.module,
+                         None if extra is None else extra["batch_stats"])
 
     @torch.no_grad()
     def apply_gradients(self, grads: Tree, lr: float,

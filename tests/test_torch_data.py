@@ -337,6 +337,54 @@ def test_sequence_batcher_matches_jax(tmp_path):
                 assert np.array_equal(x, y)
 
 
+@pytest.mark.parametrize("kw", [{}, {"drop_remainder": False},
+                                {"shuffle": False},
+                                {"left_context": 2, "right_context": 1},
+                                {"left_context": 5, "right_context": 5}])
+def test_frame_batcher_matches_jax(tmp_path, kw):
+    """Same seed, same store: the port's FrameBatcher gives the JAX
+    package's frame batches, in order, bit for bit, over two epochs (the
+    second a new permutation from the same generator); the frame tables,
+    num_frames and num_batches equal; a store without labels gives None
+    labels."""
+    from rsrgan_tpu.data import FrameBatcher as JaxBatcher
+    from rsrgan_tpu.data import UtteranceStore as JaxStore
+    from rsrgan_tpu_torch.data import FrameBatcher, StoreWriter
+    from rsrgan_tpu_torch.data import UtteranceStore as PortStore
+    rng = np.random.default_rng(1)
+    path, bare = str(tmp_path / "f.rtu"), str(tmp_path / "bare.rtu")
+    with StoreWriter(path) as w, StoreWriter(bare) as wb:
+        for i in range(6):
+            n = int(rng.integers(20, 60))
+            x = rng.normal(size=(n, 5)).astype(np.float32)
+            w.add(f"u{i}", x, rng.normal(size=(n, 3)).astype(np.float32))
+            wb.add(f"u{i}", x)
+    ours = FrameBatcher(PortStore([path]), 16, seed=5, **kw)
+    ref = JaxBatcher(JaxStore([path]), 16, seed=5, **kw)
+    assert np.array_equal(ours.inputs, ref.inputs)
+    assert np.array_equal(ours.labels, ref.labels)
+    assert ours.num_frames == ref.num_frames
+    assert ours.num_batches() == ref.num_batches()
+    for _ in range(2):
+        got, want = list(ours), list(ref)
+        assert len(got) == len(want) == ref.num_batches()
+        for (x, y), (xr, yr) in zip(got, want):
+            assert x.dtype == xr.dtype and y.dtype == yr.dtype
+            assert np.array_equal(x, xr) and np.array_equal(y, yr)
+    no_labels = FrameBatcher(PortStore([bare]), 16, seed=5, **kw)
+    assert np.array_equal(no_labels.inputs, ours.inputs)
+    assert all(y is None for _, y in no_labels)
+
+
+def test_staged_decay_matches_jax():
+    from rsrgan_tpu.training.schedules import staged_decay as jax_decay
+    from rsrgan_tpu_torch.training import staged_decay
+    for steps in range(6):
+        for factor in (0.5, 0.7):
+            assert staged_decay(3e-4, factor, steps) == \
+                jax_decay(3e-4, factor, steps)
+
+
 # ---------------------------------------------------------------------------
 # CMVN stats, the store's preparation, the synthetic corpus
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The port's training loop against the JAX CLI's, on the CPU: which
 batch each update takes, in which order, for the host-fed, gathered
-(--device_feed=on), rotating and graph-fed (--same_batch=false) loops;
-and the device feed's run bit-equal to the host feed's.
+(--device_feed=on), rotating and graph-fed (--same_batch=false) loops,
+for the LSGAN (--trainer=gan_rnn) and the MSE trainer (--trainer=rnn,
+host-fed, gathered and rotating); and the device feed's run bit-equal to
+the host feed's.
 
 Both CLIs train the flagship gan_rnn res_lstm_l for one or two epochs of
 a micro corpus with two length buckets (eight utterances of 30-44 frames
@@ -24,11 +26,13 @@ from rsrgan_tpu.cli import train as jax_train
 from rsrgan_tpu.data import device_feed as jax_feed
 from rsrgan_tpu.data.store import UtteranceStore as JaxStore
 from rsrgan_tpu.training import gan as jax_gan
+from rsrgan_tpu.training import mse as jax_mse
 from rsrgan_tpu_torch.cli import train as port_train
 from rsrgan_tpu_torch.data import (SequenceBatcher, StoreWriter,
                                    UtteranceStore)
 from rsrgan_tpu_torch.data import device_feed as port_feed
 from rsrgan_tpu_torch.training import gan as port_gan
+from rsrgan_tpu_torch.training import mse as port_mse
 
 torch.set_num_threads(2)
 
@@ -73,12 +77,12 @@ def rows(lengths) -> list:
     return [tuple(int(v) for v in r) for r in a.reshape(-1, a.shape[-1])]
 
 
-def record_jax(monkeypatch, names):
-    """Wrap the JAX GanTrainer's step functions ``names``; each call adds
-    (name, lengths) per step it runs."""
+def record_jax(monkeypatch, names, cls=jax_gan.GanTrainer):
+    """Wrap the step functions ``names`` of the JAX trainer ``cls``; each
+    call adds (name, lengths) per step it runs."""
     log = []
     for name in names:
-        orig = getattr(jax_gan.GanTrainer, name)
+        orig = getattr(cls, name)
         # lengths is the 4th positional argument of every step function
         # but the gathered ones, where it is the 5th (after the tables)
         pos = 4 if "gathered" in name else 3
@@ -88,21 +92,21 @@ def record_jax(monkeypatch, names):
             log.extend((kind, r) for r in rows(args[_pos]))
             return _orig(self, *args)
 
-        monkeypatch.setattr(jax_gan.GanTrainer, name, wrapped)
+        monkeypatch.setattr(cls, name, wrapped)
     return log
 
 
-def record_port(monkeypatch, names):
+def record_port(monkeypatch, names, cls=port_gan.GanTrainer):
     log = []
     for name in names:
-        orig = getattr(port_gan.GanTrainer, name)
+        orig = getattr(cls, name)
 
         def wrapped(self, state, inputs, labels, lengths, *args,
                     _orig=orig, _name=name):
             log.extend((_name.split("_")[0], r) for r in rows(lengths))
             return _orig(self, state, inputs, labels, lengths, *args)
 
-        monkeypatch.setattr(port_gan.GanTrainer, name, wrapped)
+        monkeypatch.setattr(cls, name, wrapped)
     return log
 
 
@@ -206,6 +210,12 @@ def test_rotating_feed_order_matches_jax(corpus, tmp_path, monkeypatch):
     plan, as the JAX CLI at the same shard capacity (each package's
     budget converted by its bytes per frame: the JAX tables are padded
     to 128 lanes)."""
+    rotating_orders_match(corpus, tmp_path, monkeypatch, [],
+                          jax_gan.GanTrainer, port_gan.GanTrainer)
+
+
+def rotating_orders_match(corpus, tmp_path, monkeypatch, trainer_flags,
+                          jax_cls, port_cls):
     cap, n_buf = 150, 2
     budgets = {}
     for tag, mod, store_cls in (
@@ -215,7 +225,7 @@ def test_rotating_feed_order_matches_jax(corpus, tmp_path, monkeypatch):
         bpf = (mod.table_bytes(cv, 4) // (sum(CV_LENGTHS) + 1))
         budgets[tag] = mod.table_bytes(cv, 4) + (cap + 1) * bpf * n_buf
     extra = ["--device_feed=on", "--device_feed_dtype=float32",
-             "--feed_prefetch=true", "--max_epoches=2"]
+             "--feed_prefetch=true", "--max_epoches=2", *trainer_flags]
     visits = {}
     for tag, main, cls, more in (
             ("jax", jax_train.main, jax_feed.RotatingDeviceFeed,
@@ -233,9 +243,9 @@ def test_rotating_feed_order_matches_jax(corpus, tmp_path, monkeypatch):
         monkeypatch.setenv("RSRGAN_FEED_HBM_BUDGET", str(budgets[tag]))
         if tag == "jax":
             log = jlog = record_jax(monkeypatch,
-                                    ["train_multi_step_gathered"])
+                                    ["train_multi_step_gathered"], jax_cls)
         else:
-            log = plog = record_port(monkeypatch, ["train_step"])
+            log = plog = record_port(monkeypatch, ["train_step"], port_cls)
         save = str(tmp_path / tag)
         assert main(flags(corpus, save, *extra, *more)) == 0
         assert log and "eff_epoch" in read_rows(save, "train")[0]
@@ -245,10 +255,58 @@ def test_rotating_feed_order_matches_jax(corpus, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# --trainer=rnn: the MSE trainer in the same loops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("feed", ["off", "on"])
+def test_rnn_update_order_matches_jax(corpus, tmp_path, monkeypatch, feed):
+    """--trainer=rnn, host-fed (--device_feed=off) and gathered
+    (--device_feed=on): every MseTrainer step takes the JAX CLI's batch
+    or plan, in its order (grouped at --steps_per_call=2), and the
+    learning rate each epoch's steps take is hp["g_lr"]."""
+    names = (["train_step", "train_multi_step"] if feed == "off"
+             else ["train_multi_step_gathered"])
+    jlog = record_jax(monkeypatch, names, jax_mse.MseTrainer)
+    rnn = ["--trainer=rnn", f"--device_feed={feed}", "--max_epoches=2",
+           "--min_epoches=3"]
+    assert jax_train.main(flags(corpus, str(tmp_path / "jax"), *rnn,
+                                "--tensorboard=false")) == 0
+    lrs = []
+    orig = port_mse.MseTrainer.train_step
+
+    def lr_of(self, state, inputs, labels, lengths, lr):
+        lrs.append(lr)
+        return orig(self, state, inputs, labels, lengths, lr)
+
+    monkeypatch.setattr(port_mse.MseTrainer, "train_step", lr_of)
+    plog = record_port(monkeypatch, ["train_step"], port_mse.MseTrainer)
+    save = str(tmp_path / "port")
+    assert port_train.main(flags(corpus, save, *rnn, "--device=cpu")) == 0
+    steps = len(TR_LENGTHS) // 2
+    assert len(jlog) == 2 * steps
+    assert [r for _, r in jlog[:steps]] != batcher_order(corpus)
+    assert plog == jlog
+    want = [r["g_lr"] for r in read_rows(save, "train")]
+    assert want[0] == 3e-4 and want[1] < want[0]
+    assert lrs == [want[0]] * steps + [want[1]] * steps
+    assert all(np.isfinite(r[k]) for r in read_rows(save, "train")
+               for k in port_train.MSE_METRICS)
+
+
+def test_rnn_rotating_feed_order_matches_jax(corpus, tmp_path,
+                                            monkeypatch):
+    """--trainer=rnn on the rotating feed: the same residencies and every
+    step on the JAX CLI's plan."""
+    rotating_orders_match(corpus, tmp_path, monkeypatch, ["--trainer=rnn"],
+                          jax_mse.MseTrainer, port_mse.MseTrainer)
+
+
+# ---------------------------------------------------------------------------
 # the device feed's epoch is the host feed's, bit for bit
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("extra", [[], ["--d_conditioned=true"]])
+@pytest.mark.parametrize("extra", [[], ["--d_conditioned=true"],
+                                   ["--trainer=rnn"]])
 def test_device_feed_on_equals_off(corpus, tmp_path, extra):
     """Two epochs with the tables resident (f32) and with the host feed:
     equal metrics rows and equal checkpoint bytes."""
