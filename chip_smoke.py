@@ -65,7 +65,9 @@ JSON line each; any failure ends the run non-zero:
    launches an iteration) and ``--decode`` from its checkpoint; two with
    ``--checkpoint_every_secs=1`` and the default ``--tensorboard`` (the
    event files' records and steps against metrics_*.jsonl, the periodic
-   snapshot read back by load_newest_state); decode from the main path's
+   snapshot read back by load_newest_state) and ``--profile_dir`` (one
+   torch.profiler trace, of the second iteration, holding the resident
+   kernels' events); decode from the main path's
    checkpoint; one
    f32 train step on one batch through the kernels against
    --lstm_impl=scan; and one bf16 train step at T=600 under
@@ -114,9 +116,32 @@ JSON line each; any failure ends the run non-zero:
    --decode_batch_size=16 on the default bf16 kernel path (the decode
    path: its launch count is reset before and read after), and f32 runs
    of the kernel and of --lstm_impl=scan held against each other.
+11. chain — the recipes' chains through the port's CLIs. First the
+   features on the card: ``import scipy`` and its version; the waves of
+   tests/fixtures/oracle_feats.npz and dsp_golden.npz through
+   ``cli/extract.py``'s engine on the card at dither 0, gated at the
+   float32 contract (LPS power, log domain above 1e-6 of the peak,
+   energy slot; MFCC by wave) and held against the same stack on the
+   CPU; ``extract.main`` with dither at --batch_size=16 and 1 on a
+   40-utterance corpus, bit-equal, with TF32 turned on before each run
+   and found off after. Then ``tools/e2e_chain.run_chain`` for
+   ``--target=lps`` (recipes/run_enhance_demo.sh: assets, simulate,
+   extract, prepare, train gan_rnn res_lstm_l at B=4, decode, resynth,
+   score, the LSD gate) and ``--target=mfcc`` (recipes/run_e2e_sim.sh:
+   the two MSE gates), each at 96 utterances and 20 epochs; every launch
+   count set to 0 just before each chain's train and decode stage and
+   read just after, in total and by shape (``shape_key``: the sizes
+   that choose a kernel's plan): K4 train, K1 and K2 in train, K4 decode
+   in decode, and K3 in neither (every backward there has 4 or 8 rows,
+   below ACC_BWD_MIN_BATCH). Stage seconds, train and extraction
+   frames/s, the gates' numbers. Then each kernel at every shape the
+   chains launched it at (T=300, ragged rows) against its twin, f32 and
+   bf16, at the kernel phases' tolerances.
 
-Then a {"kernels": [...]} line, the card's ``name, power.limit``, and last
-{"ok": true, "device": {...}}. Without a CUDA device, or without the rest
+Then a {"kernels": [...]} line (one entry more per shape the chains
+launched, with ``launches_chain``, its launches at that shape in each
+chain's train and decode stage; null on the other entries), the card's
+``name, power.limit``, and last {"ok": true, "device": {...}}. Without a CUDA device, or without the rest
 of the repository beside it, it fails and prints no result.
 """
 
@@ -1106,6 +1131,18 @@ def longest_utterances(store, rows: int) -> tuple:
     return inputs, labels, lengths
 
 
+def parse_shape(key: str) -> dict:
+    """``shape_key``'s string back to its sizes."""
+    return {k: int(v) for k, v in
+            (item.split("=") for item in key.split(","))}
+
+
+def launches_at_units(by_shape: dict, units: int) -> int:
+    """The launches of a count by shape at the layer width U=units."""
+    return sum(n for key, n in by_shape.items()
+               if parse_shape(key)["U"] == units)
+
+
 def reset_counts(counters: dict) -> None:
     """Every launch count of ``counters`` (name -> (wrapper, attribute))
     set to 0, or emptied where it is a count by shape."""
@@ -1273,12 +1310,12 @@ def dropout_epoch(train_cli, counters, flags, main_row, main_launches):
     forward (4 layers x 3 G forwards an iteration: the D step's fake and
     each G step draw their own masks) and K2 backward at B=16, no K4 in
     train mode. K1 at G width is counted where the wrapper launches it
-    (``lstm_fwd.launches_by_units`` at U=760); D's and the cv pass's K1
+    (``lstm_fwd.launches_by_shape`` at U=760); D's and the cv pass's K1
     launches are the main path's."""
     row, cv_row, launches, secs = cli_epoch(
         train_cli, counters, flags("dropout", "--keep_prob=0.8"))
     steps = row["train_steps"]
-    k1_g = launches["lstm_fwd_by_units"].get(U, 0)
+    k1_g = launches_at_units(launches["lstm_fwd_by_shape"], U)
     out = {"launches": launches, "k1_g_width_launches": k1_g,
            "k1_g_width_per_iteration": k1_g / steps, "seconds": secs,
            "speed": speed(row), "flagship_speed": speed(main_row),
@@ -1326,7 +1363,8 @@ def lstm_epoch(train_cli, counters, flags, work, data_dir, cv_list,
                  and launches["wavefront_fwd_train"] == 2 * steps
                  and launches["lstm_bwd"] == k2_want
                  and launches["lstm_fwd"] == main_launches["lstm_fwd"]
-                 and launches["lstm_fwd_by_units"].get(U, 0) == 0
+                 and launches_at_units(launches["lstm_fwd_by_shape"],
+                                       U) == 0
                  and launches["lstm_bwd_acc"] == main_launches["lstm_bwd_acc"]
                  and launches["lstm_bwd_acc_resident"] == 0
                  and launches["lstm_bwd_acc_streaming"] == 0 and rc == 0
@@ -1337,18 +1375,42 @@ def lstm_epoch(train_cli, counters, flags, work, data_dir, cv_list,
     return out
 
 
+def profile_trace(profile_dir: str) -> dict:
+    """The --profile_dir trace of one CLI run: exactly one
+    ``*.pt.trace.json``, holding kernel events on the card, the resident
+    kernels of csrc/resident.cu among them."""
+    names = sorted(n for n in (os.listdir(profile_dir)
+                               if os.path.isdir(profile_dir) else [])
+                   if n.endswith(".pt.trace.json"))
+    kernels, resident = 0, 0
+    if len(names) == 1:
+        with open(os.path.join(profile_dir, names[0])) as f:
+            events = json.load(f).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels += 1
+                resident += "_resident_kernel" in e.get("name", "")
+    return {"traces": names, "kernel_events": kernels,
+            "resident_kernel_events": resident,
+            "ok": len(names) == 1 and resident > 0}
+
+
 def snapshot_epochs(train_cli, counters, flags, work):
-    """Two epochs with --checkpoint_every_secs=1 and the default
-    --tensorboard: each split's events file holds a version record and
-    one record per metrics_*.jsonl line, steps the iterations, CRCs
-    valid; the periodic snapshot exists, and load_newest_state reads it
-    back (made the newest file, as after a crash) into a fresh state."""
+    """Two epochs with --checkpoint_every_secs=1, the default
+    --tensorboard and --profile_dir: each split's events file holds a
+    version record and one record per metrics_*.jsonl line, steps the
+    iterations, CRCs valid; the periodic snapshot exists, and
+    load_newest_state reads it back (made the newest file, as after a
+    crash) into a fresh state; the profiler wrote one trace, of the
+    second iteration, with the card's kernels in it."""
     import torch
     from rsrgan_tpu_torch.training import (load_newest_state,
                                            periodic_snapshot_path)
     from rsrgan_tpu_torch.training.tensorboard import read_scalar_events
+    profile_dir = os.path.join(work, "snapshots_profile")
     argv = flags("snapshots", "--checkpoint_every_secs=1",
-                 "--min_epoches=2", "--max_epoches=2")
+                 "--min_epoches=2", "--max_epoches=2",
+                 f"--profile_dir={profile_dir}")
     row, cv_row, launches, secs = cli_epoch(train_cli, counters, argv)
     save_dir = os.path.join(work, "snapshots")
     events_ok, records = True, {}
@@ -1375,11 +1437,13 @@ def snapshot_epochs(train_cli, counters, flags, work):
         state = trainer.init_state()
         _, source = load_newest_state(save_dir, "GAN_RNN", state)
         step = state.step
+    profile = profile_trace(profile_dir)
     out = {"seconds": secs, "event_records": records, "events_ok": events_ok,
            "snapshot": os.path.isfile(snap), "restored_from": source,
-           "restored_step": step}
+           "restored_step": step, "profile": profile}
     out["ok"] = (finite_losses(row, cv_row) and events_ok
-                 and source == "periodic" and step is not None and step >= 1)
+                 and source == "periodic" and step is not None and step >= 1
+                 and profile["ok"])
     emit({"phase": "train_snapshots", **out})
     return out
 
@@ -1528,7 +1592,7 @@ def counter_table() -> dict:
     from rsrgan_tpu_torch.ops import wavefront as wf
     return {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train, "launches"),
             "lstm_fwd": (ls.lstm_fwd, "launches"),
-            "lstm_fwd_by_units": (ls.lstm_fwd, "launches_by_units"),
+            "lstm_fwd_by_shape": (ls.lstm_fwd, "launches_by_shape"),
             "lstm_bwd": (ls.lstm_bwd, "launches"),
             "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
             "lstm_bwd_acc_resident": (ls.lstm_bwd_acc, "resident_launches"),
@@ -2095,6 +2159,278 @@ def phase_decode(work: str) -> dict:
     return out
 
 
+# The chain phase: the recipes' wav -> ark and wav -> wav chains through
+# the port's CLIs (rsrgan_tpu_torch.tools.e2e_chain), at the recipes' size.
+CHAIN_UTTS, CHAIN_EPOCHS = 96, 20
+# The chains' kernel checks: every shape the chains launched, at a padded
+# length at the top of theirs (their utterances are 1.2-3.0 s: 118-298
+# frames), every row ragged.
+CHAIN_T = 300
+CHAIN_LENGTHS = [300, 251, 207, 163, 288, 240, 199, 150]
+# The float32 feature contract of tests/test_feature_oracle.py: LPS power
+# relative to the frame's peak, the log domain on bins above 1e-6 of it,
+# the energy slot; MFCC by wave (max, median). dsp_golden.npz's MFCC is
+# the JAX front-end's own float32 output on a tone spanning eleven
+# decades, 2e-2 from float64 (tests/test_torch_features.py): 5e-2 there.
+LPS_POWER_TOL, LPS_LOG_TOL, LPS_BIN0_TOL = 1e-5, 5e-4, 1e-5
+MFCC_TOL = {"speech": (2e-2, 1e-4), "noise": (1e-3, 1e-4),
+            "tone": (2e-2, 1e-4), "golden": (5e-2, None)}
+
+
+def lps_parity(got, want) -> dict:
+    p_g, p_w = np.exp(got[:, 1:]), np.exp(want[:, 1:])
+    scale = p_w.max(axis=1, keepdims=True)
+    mask = p_w > 1e-6 * scale
+    out = {"bin0": float(np.abs(got[:, 0] - want[:, 0]).max()),
+           "power_rel": float((np.abs(p_g - p_w) / scale).max()),
+           "log_masked": float(np.abs(got[:, 1:]
+                                      - want[:, 1:])[mask].max()),
+           "all_bins_max": float(np.abs(got - want).max())}
+    out["ok"] = (got.shape == want.shape and out["bin0"] <= LPS_BIN0_TOL
+                 and out["power_rel"] <= LPS_POWER_TOL
+                 and out["log_masked"] <= LPS_LOG_TOL)
+    return out
+
+
+def mfcc_parity(got, want, kind) -> dict:
+    diff = np.abs(got - want)
+    top, med = MFCC_TOL[kind]
+    out = {"max": float(diff.max()), "median": float(np.median(diff))}
+    out["ok"] = (got.shape == want.shape and out["max"] <= top
+                 and (med is None or out["median"] <= med))
+    return out
+
+
+def chain_features(work: str) -> dict:
+    """Features on the card: the fixtures' waves through the extraction
+    CLI's engine (``BatchedExtractor``, one stack) on the card, gated on
+    the fixtures and held against the same stack on the CPU; then the CLI
+    itself on a 40-utterance corpus at --batch_size=16 and 1 with dither,
+    bit-equal, TF32 turned on before each run and found off after."""
+    import scipy
+    import torch
+    from rsrgan_tpu_torch.cli import extract
+    from rsrgan_tpu_torch.features import FrameOptions
+    from rsrgan_tpu_torch.sim import make_sim_assets
+
+    emit({"phase": "chain_scipy", "import scipy": scipy.__version__})
+    oracle = np.load(os.path.join(HERE, "tests/fixtures/oracle_feats.npz"))
+    golden = np.load(os.path.join(HERE, "tests/fixtures/dsp_golden.npz"))
+    waves = {k: oracle[f"wave_{k}"] for k in ("speech", "noise", "tone")}
+    waves["golden"] = golden["wave"]
+    want = {(k, "spectrogram"): oracle[f"lps_{k}"] for k in MFCC_TOL
+            if k != "golden"}
+    want.update({(k, "mfcc"): oracle[f"mfcc_{k}"] for k in MFCC_TOL
+                 if k != "golden"})
+    want["golden", "spectrogram"] = golden["lps"]
+    want["golden", "mfcc"] = golden["mfcc"]
+
+    def extract_all(feat, device):
+        ex = extract.BatchedExtractor(feat, FrameOptions(dither=0.0), False,
+                                      len(waves), torch.device(device))
+        got = {}
+        for i, w in enumerate(waves.values()):
+            got.update(ex.add(i, w, i))
+        got.update(ex.flush_all())
+        return {k: got[i] for i, k in enumerate(waves)}
+
+    out = {"phase": "chain_features", "fixtures": {}, "card_vs_cpu": {}}
+    oks = []
+    for feat in ("spectrogram", "mfcc"):
+        card, cpu = extract_all(feat, "cuda"), extract_all(feat, "cpu")
+        for k in waves:
+            r = (lps_parity(card[k], want[k, feat]) if feat == "spectrogram"
+                 else mfcc_parity(card[k], want[k, feat], k))
+            out["fixtures"][f"{feat}/{k}"] = r
+            oks.append(r["ok"])
+        out["card_vs_cpu"][feat] = max(float(np.abs(card[k] - cpu[k]).max())
+                                       for k in waves)
+
+    wav_scp, _, _ = make_sim_assets(os.path.join(work, "feat_assets"),
+                                    num_utts=40, min_dur_s=1.2,
+                                    max_dur_s=3.0, seed=11)
+    out["batched_vs_unbatched_bit_equal"] = {}
+    out["tf32_off_after"] = True
+    for feat in ("spectrogram", "mfcc"):
+        arks = []
+        for batch in (16, 1):
+            d = os.path.join(work, f"feat_{feat}_{batch}")
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            t0 = time.monotonic()
+            if extract.main([f"--wav_scp={wav_scp}", f"--feat_type={feat}",
+                             f"--output_dir={d}", "--name=feats",
+                             f"--batch_size={batch}",
+                             "--device=cuda"]) != 0:
+                raise RuntimeError(f"extract {feat} B={batch} failed")
+            out[f"extract_{feat}_b{batch}_seconds"] = time.monotonic() - t0
+            out["tf32_off_after"] &= not (
+                torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32)
+            arks.append(read_ark(os.path.join(d, "feats.scp")))
+        out["batched_vs_unbatched_bit_equal"][feat] = (
+            list(arks[0]) == list(arks[1])
+            and all(np.array_equal(arks[0][u], arks[1][u]) for u in arks[0]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out["ok"] = (all(oks) and out["tf32_off_after"]
+                 and all(out["batched_vs_unbatched_bit_equal"].values()))
+    emit(out)
+    return out
+
+
+def chain_counters() -> dict:
+    """counter_table() and the other three wrappers' counts by shape
+    (``shape_key``: the sizes that choose a kernel's plan)."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import wavefront as wf
+    return {**counter_table(), **{
+        f"{name}_by_shape": (fn, "launches_by_shape") for name, fn in (
+            ("wavefront_fwd_train", wf.lstm_wavefront_fwd_train),
+            ("wavefront_fwd", wf.lstm_wavefront_fwd),
+            ("lstm_bwd", ls.lstm_bwd))}}
+
+
+def chain_kernel(kernel: str, key: str, dtype_name: str) -> dict:
+    """One kernel at one shape that a chain launched (T=CHAIN_T, ragged
+    rows), every stream against its twin at the kernel phases'
+    tolerances, on seeded inputs: K4 in train or decode mode; K1; K2 on
+    its forward twin's streams."""
+    import torch
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import wavefront as wf
+    cdt = getattr(torch, dtype_name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sh = parse_shape(key)
+    U_, P_, B_ = sh["U"], sh["P"], sh["B"]
+    lens = (CHAIN_LENGTHS * (1 + B_ // len(CHAIN_LENGTHS)))[:B_]
+    seed = sum(map(ord, kernel + key))
+    extra = {"phase": "chain_kernels", "shape": key, "T": CHAIN_T}
+    streams4 = ("taps", "c_hist", "h_hist", "acts")
+    if kernel.startswith("wavefront"):
+        L_, residual, train = sh["L"], bool(sh["residual"]), "train" in kernel
+        args = kernel_inputs(seed, L_, U_, P_, B_, CHAIN_T, lens, cdt, "cuda")
+        extra.update(**resident_grid(wf.resident_plan(B_, L_, U_, P_, cdt,
+                                                      sms)),
+                     **wavefront_bound(L_, U_, P_, B_, CHAIN_T, lens,
+                                       dtype_name, train=train,
+                                       residual=residual))
+        if train:
+            return timed(kernel, dtype_name,
+                         lambda: wf.lstm_wavefront_fwd_train(
+                             *args, residual=residual),
+                         lambda: wf.lstm_wavefront_fwd_reference(
+                             *args, residual=residual, save_acts=True),
+                         streams4, **extra)
+        return timed(kernel, dtype_name,
+                     lambda: (wf.lstm_wavefront_fwd(*args,
+                                                    residual=residual),),
+                     lambda: (wf.lstm_wavefront_fwd_reference(
+                         *args, residual=residual),),
+                     ("top_tap",), **extra)
+    rng = np.random.default_rng(seed)
+    prm = layer_params(rng, P_, U_, P_, cdt, "cuda")
+    x = torch.from_numpy(
+        rng.normal(size=(CHAIN_T, B_, P_)).astype(np.float32)).cuda()
+    xw = (x.to(cdt).float() @ prm["w_x"].to(cdt).float()).to(cdt)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    k1_args = (xw, lens_t, prm["w_h"], prm["proj"], prm["bias"], prm["wi"],
+               prm["wf"], prm["wo"])
+    if kernel == "lstm_fwd":
+        return timed(kernel, dtype_name, lambda: ls.lstm_fwd(*k1_args),
+                     lambda: ls.lstm_fwd_reference(*k1_args), streams4,
+                     **extra,
+                     **rowgroup_grid(ls.rowgroup_plan(B_, U_, P_, cdt, sms)),
+                     **k1_bound(U_, P_, B_, CHAIN_T, lens, dtype_name))
+    _, c_h, _, acts = ls.lstm_fwd_reference(*k1_args)
+    dout = torch.from_numpy(
+        rng.normal(size=(CHAIN_T, B_, P_)).astype(np.float32)).cuda()
+    k2_args = (acts, lens_t, dout, c_h, prm["w_h"], prm["proj"], prm["wi"],
+               prm["wf"], prm["wo"])
+    return timed(kernel, dtype_name, lambda: ls.lstm_bwd(*k2_args),
+                 lambda: ls.lstm_bwd_reference(*k2_args), ("dxw", "m", "dh"),
+                 **extra,
+                 **resident_grid(ls.resident_plan(B_, U_, P_, cdt, sms)),
+                 **bwd_bound(U_, P_, B_, CHAIN_T, lens, dtype_name,
+                             acc=False))
+
+
+def chain_shapes(runs: dict) -> list:
+    """(wrapper, shape_key) of every launch the chains' train and decode
+    stages counted, in a fixed order."""
+    return sorted({(name, key) for r in runs.values()
+                   for stage in r["launches"].values()
+                   for name in ("wavefront_fwd_train", "wavefront_fwd",
+                                "lstm_fwd", "lstm_bwd")
+                   for key in stage[f"{name}_by_shape"]})
+
+
+def chain_run(work: str, target: str, counters: dict) -> dict:
+    """One recipe chain through e2e_chain.run_chain; every launch count
+    set to 0 just before its train and its decode stage and read just
+    after, in total and by shape. At the recipes' --batch_size=4 every
+    LSTM backward has 4 (G) or 8 (D) rows, below ACC_BWD_MIN_BATCH, so
+    each runs on K2 and K3 never launches: its count must be 0."""
+    import contextlib
+
+    import torch
+    from rsrgan_tpu_torch.tools import e2e_chain
+    launches = {}
+
+    @contextlib.contextmanager
+    def counted(stage):
+        if stage in ("train", "decode"):
+            reset_counts(counters)
+        yield
+        if stage in ("train", "decode"):
+            torch.cuda.synchronize()
+            launches[stage] = read_counts(counters)
+
+    res = e2e_chain.run_chain(target, os.path.join(work, f"chain_{target}"),
+                              CHAIN_EPOCHS, CHAIN_UTTS, 12, "cuda",
+                              stage_context=counted)
+    tr, de = launches["train"], launches["decode"]
+    routes = (all(tr[k] > 0 for k in ("wavefront_fwd_train", "lstm_fwd",
+                                      "lstm_bwd"))
+              and tr["lstm_bwd_acc"] == 0
+              and de["wavefront_fwd"] > 0
+              and de["wavefront_fwd_train"] == de["lstm_bwd"] == 0)
+    keep = ("wavefront_fwd_train", "wavefront_fwd", "lstm_fwd",
+            "lstm_bwd", "lstm_bwd_acc", "wavefront_fwd_train_by_shape",
+            "wavefront_fwd_by_shape", "lstm_fwd_by_shape",
+            "lstm_bwd_by_shape")
+    out = {"phase": f"chain_{target}", **res,
+           "launches": {s: {k: launches[s][k] for k in keep}
+                        for s in ("train", "decode")},
+           "routes_ok": routes}
+    out["ok"] = bool(res["passed"] and routes)
+    emit(out)
+    return out
+
+
+def phase_chain(work: str) -> dict:
+    """Features on the card, then the LPS chain and the MFCC chain, then
+    each kernel at every shape the chains launched it at, against its
+    twin in f32 and bf16."""
+    t0 = time.monotonic()
+    counters = chain_counters()
+    feats = chain_features(work)
+    runs = {t: chain_run(work, t, counters) for t in ("lps", "mfcc")}
+    t1 = time.monotonic()
+    kernels = {d: [chain_kernel(name, key, d)
+                   for name, key in chain_shapes(runs)]
+               for d in ("float32", "bfloat16")}
+    out = {"phase": "chain", "seconds": time.monotonic() - t0,
+           "kernel_check_seconds": time.monotonic() - t1,
+           "launches": {t: r["launches"] for t, r in runs.items()},
+           "shapes_checked": [f"{n} {k}" for n, k in chain_shapes(runs)],
+           "ok": (feats["ok"] and all(r["ok"] for r in runs.values())
+                  and all(r["ok"] for rs in kernels.values() for r in rs))}
+    emit(out)
+    out["kernels"] = kernels
+    return out
+
+
 def card_name_and_limit() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -2103,7 +2439,7 @@ def card_name_and_limit() -> str:
 
 
 PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
-          "train_mse", "train_frame", "feed", "decode")
+          "train_mse", "train_frame", "feed", "decode", "chain")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -2211,6 +2547,33 @@ def kernels_line(results: dict) -> dict:
                 entry["launches_mse"], entry["launches_mse_per"] = \
                     mse_runs[key]
             entries.append(entry)
+    for entry in entries:
+        entry["launches_chain"] = None  # shapes the chains do not run
+    if "chain" in results:
+        # one entry per shape the chains launched: its checks at that
+        # shape, its launches there in each chain's train and decode
+        chain = results["chain"]
+        labels = {"wavefront_fwd_train": ("wavefront_fwd (train, "
+                                          "save_acts=True", REPLACES),
+                  "wavefront_fwd": ("wavefront_fwd (decode, "
+                                    "save_acts=False", REPLACES),
+                  "lstm_fwd": ("lstm_fwd (K1",
+                               "rsrgan_tpu/ops/pallas_lstm.py:74"),
+                  "lstm_bwd": ("lstm_bwd (K2",
+                               "rsrgan_tpu/ops/pallas_lstm.py:196")}
+        for r in chain["kernels"]["bfloat16"]:
+            label, replaces = labels[r["kernel"]]
+            per = {f"{t}_{stage}": counts[f"{r['kernel']}_by_shape"].get(
+                       r["shape"], 0)
+                   for t, stages in chain["launches"].items()
+                   for stage, counts in stages.items()}
+            entry = kernel_entry(
+                f"{label}; recipe chains at {r['shape']})", RESIDENT,
+                replaces, sum(per.values()),
+                "both recipe chains' train and decode stages (96 "
+                "utterances, 20 epochs, --batch_size=4)", r, r)
+            entry["launches_chain"] = per
+            entries.append(entry)
     return {"kernels": entries}
 
 
@@ -2271,6 +2634,9 @@ def main(argv=None) -> int:
         if "decode" in phases:
             results["decode"] = phase_decode(work)
             oks.append(results["decode"]["ok"])
+        if "chain" in phases:
+            results["chain"] = phase_chain(work)
+            oks.append(results["chain"]["ok"])
     if not all(oks):
         return fail("a phase failed (see the lines with \"ok\": false)")
     if set(phases) != set(PHASES):

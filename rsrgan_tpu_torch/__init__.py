@@ -5,7 +5,14 @@ The port runs on one NVIDIA H100. It mirrors the module names of
 stays the reference that every module here is tested against.
 
 Layer map (what this package holds today — the LSGAN, MSE and frame
-trainers and their decode, and data preparation):
+trainers and their decode, data preparation, and the waveform chain from
+a wave to a score):
+  sim/       numpy and scipy copies of the corpus simulation: wav I/O,
+             RIR convolution and SNR mixing, synthetic speech and rooms
+  features/  the LPS and hires MFCC front-end in PyTorch on any device
+             (batched ``[B, samples]``), resynthesis (numpy)
+  eval/      numpy copies of the metrics: SNR, SI-SNR, segmental SNR,
+             LSD, feature MSE, global variance, STOI and ESTOI
   data/      numpy copies of the Kaldi ark/scp (compressed matrices
              included), CMVN, splice, .rtu store, store preparation,
              TFRecord import, synthetic corpus, sequence and frame
@@ -22,8 +29,11 @@ trainers and their decode, and data preparation):
   models/    ResLstmGenerator, LstmGenerator, the frame generators DNN,
              R-CED and CNN, LstmDiscriminator, DnnDiscriminator, their
              registries and the weight bridge to flax trees
-  cli/       ``python -m rsrgan_tpu_torch.cli.train`` (train, --decode)
-             and ``python -m rsrgan_tpu_torch.cli.prepare``
+  cli/       ``python -m rsrgan_tpu_torch.cli.train`` (train, --decode,
+             --profile_dir), ``prepare``, ``simulate``, ``extract`` (on
+             the card), ``resynth``, ``score`` and ``plot``
+  tools/     ``e2e_chain`` (the recipes' wave-to-score chains through the
+             CLIs, with their gates) and the kernels' timing tools
 
 This package imports ``torch`` and never ``jax``, ``flax`` or ``msgpack``.
 """

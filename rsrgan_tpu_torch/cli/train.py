@@ -37,7 +37,10 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
   each utterance's frames for the frame trainers, BatchNorm on the
   checkpoint's running statistics), CMVN denormalisation, Kaldi
   feats.ark/feats.scp (``--compress``: compressed matrices, ``--text``:
-  a text archive).
+  a text archive);
+* ``--profile_dir``: a torch.profiler trace of the second iteration (the
+  second epoch of the frame loop), as the JAX CLI traces with
+  ``jax.profiler``.
 
 ``--lstm_impl auto|wavefront`` runs the hand-written kernels (the
 wavefront stack for G, the single-layer kernels for D below 64 rows),
@@ -73,7 +76,8 @@ from typing import (Dict, Hashable, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-from rsrgan_tpu_torch.cli import str2bool
+from rsrgan_tpu_torch.cli import (resolve_device, set_precision,
+                                  str2bool)
 from rsrgan_tpu_torch.data import (ArkWriter, FrameBatcher,
                                    SequenceBatcher, StoreView,
                                    ThreadedPrefetcher, UtteranceStore,
@@ -118,17 +122,6 @@ def resolve_lstm_impl(args) -> str:
     allows it, 'pallas' the single-layer kernels, 'scan' the eager cell.
     On the CPU each kernel wrapper runs its plain twin."""
     return "wavefront" if args.lstm_impl == "auto" else args.lstm_impl
-
-
-def resolve_device(name: str) -> torch.device:
-    """The run's device. A CUDA device that is not there is an error: the
-    CLI never carries on on the CPU unless asked to."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device={name} but no CUDA device is available (pass "
-            "--device=cpu to run the plain PyTorch path on the CPU)")
-    return device
 
 
 def validate_checkpoint_compat(args, name: str) -> None:
@@ -342,6 +335,35 @@ class PeriodicSnapshotter:
         path = periodic_snapshot_path(self.save_dir, self.name)
         if os.path.isfile(path):
             os.remove(path)
+
+
+class Profiler:
+    """--profile_dir: a torch.profiler trace of the JAX CLI's iteration
+    (the second of the sequence loop, the second epoch of the frame
+    loop), written by ``tensorboard_trace_handler``; view it in
+    TensorBoard or Perfetto. CUDA activities are traced where the device
+    is a card."""
+
+    def __init__(self, profile_dir: Optional[str], device: torch.device):
+        self.dir, self.device = profile_dir, device
+        self._prof = None
+
+    def start(self) -> None:
+        if self.dir and self._prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(
+                activities=acts,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    self.dir))
+            self._prof.start()
+
+    def stop(self) -> None:
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof = None
+            log(f"Wrote profiler trace to {self.dir}")
 
 
 def restore_state(args, name: str, state) -> Tuple[Optional[str], str]:
@@ -604,6 +626,7 @@ def run_sequence_training(args) -> int:
     cv_writer = MetricsWriter(args.save_dir, "eval", args.tensorboard)
     steps_per_call = max(1, args.steps_per_call)
     left, right = args.left_context, args.right_context
+    profiler = Profiler(args.profile_dir, device)
 
     # the two trainers' steps on one batch, or on a plan in the resident
     # tables (hp is read at each call: the schedules change it)
@@ -681,6 +704,8 @@ def run_sequence_training(args) -> int:
             torch.cuda.synchronize(device)
 
     for iteration in range(n_iterations):
+        if iteration == 1:
+            profiler.start()   # the steady-state second iteration
         start = datetime.datetime.now()
         tr_accum, cv_accum = [], []
         true_frames = 0
@@ -786,6 +811,7 @@ def run_sequence_training(args) -> int:
             tr_row["eff_epoch"] = eff_epoch
         tr_writer.write(iteration + 1, tr_row)
         cv_writer.write(iteration + 1, cv_m)
+        profiler.stop()
 
         # the reference's staircase: epoch 1 at the initial values, epoch
         # k >= 2 at decay(k - 1) on completed epochs. Under rotation a
@@ -866,6 +892,7 @@ def run_frame_training(args) -> int:
     g_lr = args.g_learning_rate
     tr_writer = MetricsWriter(args.save_dir, "train", args.tensorboard)
     cv_writer = MetricsWriter(args.save_dir, "eval", args.tensorboard)
+    profiler = Profiler(args.profile_dir, device)
 
     def on_device(x, y):
         return (torch.from_numpy(x).to(device),
@@ -891,6 +918,8 @@ def run_frame_training(args) -> int:
     decay_steps = 1
 
     for epoch in range(args.max_epoches):
+        if epoch == 1:
+            profiler.start()
         start = datetime.datetime.now()
         tr_accum = []
         for x, y in ThreadedPrefetcher(iter(tr_batches), 32):
@@ -921,6 +950,7 @@ def run_frame_training(args) -> int:
                                     "train_steps": len(tr_accum),
                                     "learning_rate": g_lr})
         cv_writer.write(epoch + 1, cv_m)
+        profiler.stop()
 
         g_loss_new = cv_m["g_loss"]
         g_rel_impr = (g_loss_prev - g_loss_new) / g_loss_prev
@@ -1051,7 +1081,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode_batch_size", type=int, default=1,
                    help=">1: batched enhancement grouped by padded length")
     p.add_argument("--seed", type=int, default=777)
-    p.add_argument("--profile_dir", type=str, default=None)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the second "
+                        "iteration (frame loop: second epoch) here")
     p.add_argument("--bias_d_conv", type=str2bool, nargs="?", const=True,
                    default=True)
     for alias in ("min_epochs", "max_epochs"):
@@ -1077,14 +1109,6 @@ def apply_flag_aliases(args) -> None:
         value = getattr(args, alias)
         if value is not None:
             setattr(args, canonical, value)
-
-
-def set_precision() -> None:
-    """f32 means f32 on a card: no TF32 in matmuls or in cuDNN's
-    convolutions (the frame models'), where PyTorch's default for the
-    latter is TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def main(argv=None) -> int:

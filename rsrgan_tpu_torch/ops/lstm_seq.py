@@ -293,6 +293,12 @@ def _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
     return (out,) + saved
 
 
+def shape_key(proj, rows: int) -> str:
+    """The key of a launch count by shape: the layer's U and P (``proj``
+    is [U, P]) and its rows, the sizes that choose the kernel's plan."""
+    return f"U={proj.shape[0]},P={proj.shape[1]},B={rows}"
+
+
 def lstm_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts=True):
     """K1 (arguments and results as ``lstm_fwd_reference``). CPU tensors
     take the twin; CUDA tensors launch the row-group kernel of
@@ -306,14 +312,14 @@ def lstm_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts=True):
     out = _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
                                save_acts)
     lstm_fwd.launches += 1
-    units = proj.shape[0]
-    lstm_fwd.launches_by_units[units] = (
-        lstm_fwd.launches_by_units.get(units, 0) + 1)
+    key = shape_key(proj, xw.shape[1])
+    lstm_fwd.launches_by_shape[key] = (
+        lstm_fwd.launches_by_shape.get(key, 0) + 1)
     return out
 
 
 lstm_fwd.launches = 0  # kernel launches in this process
-lstm_fwd.launches_by_units = {}  # the same launches by the layer's U
+lstm_fwd.launches_by_shape = {}  # the same launches by shape_key
 
 
 # ---------------------------------------------------------------------------
@@ -648,10 +654,14 @@ def lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
     out = _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi,
                                wf, wo)
     lstm_bwd.launches += 1
+    key = shape_key(proj, acts.shape[1])
+    lstm_bwd.launches_by_shape[key] = (
+        lstm_bwd.launches_by_shape.get(key, 0) + 1)
     return out
 
 
 lstm_bwd.launches = 0  # kernel launches in this process
+lstm_bwd.launches_by_shape = {}  # the same launches by shape_key
 
 
 @dataclasses.dataclass(frozen=True)

@@ -316,6 +316,21 @@ def _device_check(x):
         raise ValueError(f"no wavefront kernel for device {x.device}")
 
 
+def shape_key(proj, rows: int, residual: bool) -> str:
+    """The key of a launch count by shape: the stack's L, U and P
+    (``proj`` is [L, U, P]), its rows and the residual, the sizes that
+    choose the kernel's plan."""
+    L, U, P = proj.shape
+    return f"L={L},U={U},P={P},B={rows},residual={int(residual)}"
+
+
+def count_shape(wrapper, proj, rows: int, residual: bool) -> None:
+    """One launch of ``wrapper``, in its total and by ``shape_key``."""
+    wrapper.launches += 1
+    key = shape_key(proj, rows, residual)
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
+
+
 def lstm_wavefront_fwd(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
                        residual=True):
     """Top tap [T, B, P] f32 of the wavefront stack, inference mode
@@ -327,11 +342,12 @@ def lstm_wavefront_fwd(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
     _device_check(x)
     y = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
                          residual, save_acts=False)
-    lstm_wavefront_fwd.launches += 1
+    count_shape(lstm_wavefront_fwd, proj, x.shape[1], residual)
     return y
 
 
 lstm_wavefront_fwd.launches = 0  # kernel launches in this process
+lstm_wavefront_fwd.launches_by_shape = {}  # the same by shape_key
 
 
 def lstm_wavefront_fwd_train(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
@@ -353,9 +369,10 @@ def lstm_wavefront_fwd_train(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
     _device_check(x)
     saved = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
                              wo, residual, save_acts=True)
-    lstm_wavefront_fwd_train.launches += 1
+    count_shape(lstm_wavefront_fwd_train, proj, x.shape[1], residual)
     return saved
 
 
 lstm_wavefront_fwd_train.launches = 0  # kernel launches in this process
+lstm_wavefront_fwd_train.launches_by_shape = {}  # the same by shape_key
 

@@ -34,9 +34,11 @@ def l2_loss_nonbias(params: Mapping[str, torch.Tensor],
                     l2_scale: float) -> torch.Tensor:
     """sum(||v||^2 / 2) * scale over the parameters whose name has no
     'bias' (the reference's name filter; names as the JAX tree paths,
-    case-insensitive)."""
+    case-insensitive). At scale 0, a zero on the parameters' device: the
+    CLI stacks it with the step's other metrics."""
     if l2_scale <= 0.0:
-        return torch.zeros((), dtype=torch.float32)
+        device = next(iter(params.values())).device if params else None
+        return torch.zeros((), dtype=torch.float32, device=device)
     total = 0.0
     for name in sorted(params):
         if "bias" in name.lower():

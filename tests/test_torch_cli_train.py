@@ -6,7 +6,8 @@ the JAX package resumes the port's checkpoint. ``--keep_prob`` reaches G
 and D, ``--g_type=lstm`` trains and decodes alike in both packages,
 ``--tensorboard`` writes event files that match the JSONL metrics,
 ``--checkpoint_every_secs`` writes snapshots that a resume takes, and
-``--decode --compress`` writes the JAX encoder's bytes. Without
+``--decode --compress`` writes the JAX encoder's bytes, and
+``--profile_dir`` writes one trace, of the second iteration. Without
 ``--device=cpu`` and without a card, training raises."""
 
 import os
@@ -131,6 +132,39 @@ def test_training_without_card_raises(corpus, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_train.main(train_flags(corpus, str(tmp_path / "x")))
+
+
+TRACE_SUFFIX = ".pt.trace.json"
+
+
+@pytest.mark.parametrize("loop", ["sequence", "frame"])
+def test_profile_dir_traces_the_second_iteration(corpus, trained, tmp_path,
+                                                 capsys, loop):
+    """--profile_dir: two iterations (epochs of the frame loop) write one
+    torch.profiler trace there, of the second, as the JAX CLI traces its
+    second; a run without the flag writes none."""
+    prof_dir = str(tmp_path / "prof")
+    flags = train_flags(corpus, str(tmp_path / "run"), "--device=cpu",
+                        "--tensorboard=false", f"--profile_dir={prof_dir}")
+    flags = [f for f in flags if not f.startswith(("--max_epoches",
+                                                    "--min_epoches"))]
+    flags += ["--max_epoches=2", "--min_epoches=2"]
+    if loop == "frame":
+        flags = [f for f in flags if not f.startswith(("--trainer",
+                                                        "--g_type",
+                                                        "--batch_size"))]
+        flags += ["--trainer=dnn", "--g_type=dnn", "--batch_size=32",
+                  "--left_context=1", "--right_context=1"]
+    assert port_train.main(flags) == 0
+    out = capsys.readouterr().out
+    traces = [n for n in os.listdir(prof_dir) if n.endswith(TRACE_SUFFIX)]
+    assert len(traces) == 1
+    assert out.count("Wrote profiler trace to") == 1
+    second = "2/2 (INFO)" if loop == "sequence" else "Epoch 2 (TRAIN"
+    assert (out.index("1/2 (INFO)" if loop == "sequence" else "Epoch 1 (")
+            < out.index(second) < out.index("Wrote profiler trace to"))
+    assert not [n for _, _, names in os.walk(trained) for n in names
+                if n.endswith(TRACE_SUFFIX)]
 
 
 def events_of(save_dir, split):

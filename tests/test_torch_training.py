@@ -70,6 +70,16 @@ def test_losses_match(rng):
                                         0.0)) == 0.0
 
 
+def test_l2_loss_at_scale_zero_lies_on_the_params_device():
+    """--l2_scale=0 (the recipes' flag): the zero lies where the
+    parameters do, so the CLI can stack it with the step's other metrics
+    (on a card it lay on the CPU, and the first epoch's average raised)."""
+    params = {"w": torch.zeros((3, 4), device="meta")}
+    zero = losses.l2_loss_nonbias(params, 0.0)
+    assert zero.device.type == "meta" and zero.shape == ()
+    assert losses.l2_loss_nonbias(params, 1e-3).device.type == "meta"
+
+
 @pytest.mark.parametrize("name", ["adam", "sgd", "rmsprop"])
 @pytest.mark.parametrize("max_norm", [15.0, 0.5, None])
 def test_optimizer_steps_match_optax(rng, name, max_norm):
