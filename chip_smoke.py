@@ -138,6 +138,32 @@ JSON line each; any failure ends the run non-zero:
    chains launched it at (T=300, ragged rows) against its twin, f32 and
    bf16, at the kernel phases' tolerances.
 
+12. serve — the streaming front-end (serving/, cli/serve.py) at
+   res_lstm_l's full width, f32, the eager cell (no hand kernel: every
+   launch count is 0 while streaming). Feature mode: ``cli.serve.main``
+   over the decode phase's 32 utterances at --chunk_frames=50, from a
+   whole seeded GanState checkpoint, against ``cli.train --decode`` in
+   f32 on K4 (its K4 launches counted) and on --lstm_impl=scan, max abs
+   <= 1e-3; at --chunk_frames=7 and 640 (longer than every utterance)
+   bit-equal to it on 8 utterances; TF32 turned on before each CLI run
+   and found off after; ms per 50-frame chunk at B=1 (median and p95 of
+   200) and per pooled step at B=8 (50), with torch.profiler's CUDA
+   kernels and copies per chunk and the device's busy share. Wav mode:
+   an LPS->LPS res_lstm_l (257 out) and the waves' own CMVN over 16
+   seeded noisy waves of 2-4 s; the CLI single-stream and at
+   --num_streams=8 (its x-realtime lines; the written wavs equal up to
+   one 16-bit step, the single stream's bit-equal to the library's
+   float waves clipped to 16 bits), the library's float waves pooled
+   against single within 1e-5 of the peak and against the offline chain
+   (f32 --decode, then resynthesize) above 35 dB SNR.
+13. proxy — ``tools.proxy_asr.main`` on the card over
+   tests/test_proxy.py's separable corpus and its noisy twin, with that
+   test's gates (clean FER < 0.25, noisy FER > clean + 0.1, SER <= FER +
+   0.35), TF32 off after, its train frames/s, no hand kernel; then one
+   f32 step at hidden 192 on the card against the same step on the CPU
+   from the same weights: gradients per tensor and the post-step
+   parameters, max |diff| / max |ref| <= 1e-5.
+
 Then a {"kernels": [...]} line (one entry more per shape the chains
 launched, with ``launches_chain``, its launches at that shape in each
 chain's train and decode stage; null on the other entries), the card's
@@ -223,8 +249,9 @@ def glorot(rng, shape):
     return rng.uniform(-limit, limit, size=shape).astype(np.float32)
 
 
-def generator_tree(seed: int) -> dict:
-    """Seeded res_lstm_l G parameters in the JAX tree layout."""
+def generator_tree(seed: int, out: int = OUT) -> dict:
+    """Seeded res_lstm_l G parameters (``out`` wide) in the JAX tree
+    layout."""
     rng = np.random.default_rng(seed)
     tree = {}
     for k in range(L):
@@ -236,8 +263,8 @@ def generator_tree(seed: int) -> dict:
             "w_f_diag": glorot(rng, (1, U)),
             "w_o_diag": glorot(rng, (1, U)),
         }
-    tree["forward_out"] = {"kernel": glorot(rng, (P, OUT)),
-                           "bias": rng.normal(0, 0.1, OUT).astype(np.float32)}
+    tree["forward_out"] = {"kernel": glorot(rng, (P, out)),
+                           "bias": rng.normal(0, 0.1, out).astype(np.float32)}
     return tree
 
 
@@ -2084,37 +2111,61 @@ def read_ark(scp_path: str) -> dict:
     return dict(iter(ScpReader(scp_path)))
 
 
-def phase_decode(work: str) -> dict:
-
-    import torch
-    from rsrgan_tpu_torch.cli import train as train_cli
+def decode_inputs(work: str) -> tuple:
+    """The decode phase's seeded 32-utterance test store (150-600 frames,
+    P wide) and train_cmvn.npz under ``work``/data, written once: (data
+    dir, test list, lengths)."""
     from rsrgan_tpu_torch.data import StoreWriter
-    from rsrgan_tpu_torch.ops.wavefront import lstm_wavefront_fwd
-    from rsrgan_tpu_torch.training import save_checkpoint
-
     rng = np.random.default_rng(3)
     data_dir = os.path.join(work, "data")
-    os.makedirs(data_dir)
+    test_list = os.path.join(data_dir, "test.list")
     lengths = rng.integers(150, 601, size=32)
+    if os.path.isfile(test_list):
+        return data_dir, test_list, lengths
+    os.makedirs(data_dir)
     with StoreWriter(os.path.join(data_dir, "test.rtu")) as store:
         for i, n in enumerate(lengths):
             store.add(f"utt{i:04d}",
                       rng.normal(size=(int(n), P)).astype(np.float32))
-    test_list = os.path.join(data_dir, "test.list")
     with open(test_list, "w") as f:
         f.write(os.path.join(data_dir, "test.rtu") + "\n")
     np.savez(os.path.join(data_dir, "train_cmvn.npz"),
              mean_inputs=rng.normal(size=P), stddev_inputs=np.ones(P),
              mean_labels=rng.normal(size=OUT),
              stddev_labels=rng.uniform(0.5, 2.0, size=OUT))
-    tree = generator_tree(4)
-    ckpt_dir = os.path.join(work, "ckpt")
-    save_checkpoint(ckpt_dir, "GAN_RNN",
+    return data_dir, test_list, lengths
+
+
+def g_checkpoint(save_dir: str, tree: dict, out: int) -> None:
+    """A checkpoint of G's tree alone (params and EMA) with its
+    .meta.json, as ``cli.train --decode`` and ``cli.serve`` read it."""
+    from rsrgan_tpu_torch.training import save_checkpoint
+    save_checkpoint(save_dir, "GAN_RNN",
                     {"g": {"params": tree, "ema": tree},
                      "step": np.zeros((), np.int32)}, 1,
                     meta={"trainer": "gan_rnn", "g_type": "res_lstm_l",
-                          "input_dim": P, "output_dim": OUT,
+                          "input_dim": P, "output_dim": out,
                           "left_context": 0, "right_context": 0})
+
+
+def decode_phase_checkpoint(work: str) -> tuple:
+    """The decode phase's seeded res_lstm_l checkpoint under
+    ``work``/ckpt, written once: (its directory, G's tree)."""
+    tree = generator_tree(4)
+    ckpt_dir = os.path.join(work, "ckpt")
+    if not os.path.isdir(ckpt_dir):
+        g_checkpoint(ckpt_dir, tree, OUT)
+    return ckpt_dir, tree
+
+
+def phase_decode(work: str) -> dict:
+
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.ops.wavefront import lstm_wavefront_fwd
+
+    data_dir, test_list, lengths = decode_inputs(work)
+    ckpt_dir, _ = decode_phase_checkpoint(work)
 
     def decode(tag, *flags):
         save_dir = os.path.join(work, tag)
@@ -2431,6 +2482,557 @@ def phase_chain(work: str) -> dict:
     return out
 
 
+# The serve phase: res_lstm_l at full width through the port's streaming
+# front-end (cli/serve.py; serving/), which runs the eager cell and no
+# hand kernel. Feature mode from the decode phase's store, wav mode from
+# seeded noisy waves through an LPS->LPS checkpoint.
+SERVE_CHUNK = 50
+SERVE_LONG_CHUNK = 640          # longer than every test utterance (<= 600)
+SERVE_TIMED_CHUNKS = 200       # B=1 chunks timed
+SERVE_POOL = 8
+SERVE_POOL_STEPS = 50          # B=SERVE_POOL steps timed
+SERVE_WAVS = 16
+# pooled (B=8) against single (B=1) streams: the products' last bits
+# differ with the batch; max |diff| / peak of the float waves
+SERVE_POOL_TOL = 1e-5
+# streamed against the offline chain (f32 --decode, then resynthesize):
+# tests/test_wav_stream.py's gate
+SERVE_SNR_DB = 35.0
+# wav mode's label CMVN (the waves' own LPS mean, unit stddev) is shifted
+# so that the first wave's enhanced peak is this; the written 16-bit
+# waves must then stay below half of the range, so that nothing is clipped
+SERVE_WAV_PEAK = 4000.0
+SERVE_WAV_PEAK_MAX = 16384.0
+
+
+def run_cli(main, argv) -> tuple:
+    """``main(argv)`` in this process with TF32 turned on before it (the
+    CLI must turn it off), its stdout captured: (seconds, stdout lines,
+    TF32 off after)."""
+    import contextlib
+    import io
+
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    off = not (torch.backends.cuda.matmul.allow_tf32
+               or torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rc != 0:
+        raise RuntimeError(f"{main.__module__} {argv} returned {rc}")
+    return secs, buf.getvalue().splitlines(), off
+
+
+def hand_launches(counts: dict) -> int:
+    """Every launch of every hand kernel in a read_counts() result."""
+    return sum(sum(v.values()) if isinstance(v, dict) else v
+               for k, v in counts.items()
+               if not k.endswith(("_by_shape", "_resident", "_streaming")))
+
+
+def chunk_timing(enh, x: np.ndarray, rows: int, timed: int,
+                 counters: dict) -> dict:
+    """ms per streamed chunk of SERVE_CHUNK frames at B=rows (all lanes
+    full, masked as the pool runs them when rows > 1), the output copied
+    to the host as the server does, over ``timed`` chunks after 10 of
+    warm-up; then torch.profiler over 3 chunks: CUDA kernels and copies
+    per chunk, device time against wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    C = SERVE_CHUNK
+    lengths = np.full(rows, C, np.int32) if rows > 1 else None
+    chunks = [np.stack([x[(i * rows + r) * C % (len(x) - C):][:C]
+                        for r in range(rows)])
+              for i in range(timed + 13)]
+    state = enh.init_state(rows)
+    times = []
+    reset_counts(counters)
+    for i, chunk in enumerate(chunks[:timed + 10]):
+        t0 = time.perf_counter()
+        y, state = enh.step(chunk, state, lengths=lengths)
+        y.cpu()
+        if i >= 10:
+            times.append((time.perf_counter() - t0) * 1e3)
+    launches = hand_launches(read_counts(counters))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for chunk in chunks[-3:]:
+            y, state = enh.step(chunk, state, lengths=lengths)
+            y.cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / 3
+    ms = np.asarray(times)
+    return {"B": rows, "chunk_frames": C, "chunks_timed": len(times),
+            "ms_median": float(np.median(ms)),
+            "ms_p95": float(np.percentile(ms, 95)),
+            "frames_per_s": rows * C / (float(np.median(ms)) / 1e3),
+            "kernels_per_chunk": (len(events) - len(copies)) / 3,
+            "copies_per_chunk": len(copies) / 3,
+            "profiled_wall_ms_per_chunk": wall_ms,
+            "device_ms_per_chunk": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "hand_kernel_launches": launches}
+
+
+def serve_features(work: str, counters: dict) -> dict:
+    """Feature mode: cli.serve over the decode phase's 32 utterances and
+    checkpoint at --chunk_frames=50, held against cli.train --decode in
+    f32 on K4 and on --lstm_impl=scan (<= DECODE_TOL_F32), and against
+    itself at 7 and SERVE_LONG_CHUNK frames (bit-equal: every product
+    has one step's shape); launch counts set to 0 before each run: none
+    while streaming, K4 decode in the reference decode; then ms per chunk
+    at B=1 and per pooled step at B=SERVE_POOL."""
+    import torch
+    from rsrgan_tpu_torch.cli import serve as serve_cli
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.data import UtteranceStore, read_list_file
+    from rsrgan_tpu_torch.serving import StreamingEnhancer
+    data_dir, test_list, lengths = decode_inputs(work)
+    ckpt, tree = decode_phase_checkpoint(work)
+    common = ["--g_type=res_lstm_l", f"--input_dim={P}",
+              f"--output_dim={OUT}", f"--data_dir={data_dir}"]
+    out = {"phase": "serve_features", "utterances": len(lengths),
+           "frames": int(lengths.sum()), "tf32_off_after": True}
+
+    refs = {}
+    for tag, flags in (("kernel", []), ("scan", ["--lstm_impl=scan"])):
+        save_dir = os.path.join(work, f"serve_decode_{tag}")
+        shutil.copytree(ckpt, save_dir)
+        reset_counts(counters)
+        secs, _, off = run_cli(train_cli.main, [
+            "--decode", "--trainer=gan_rnn", "--bf16=false",
+            "--decode_batch_size=16", f"--save_dir={save_dir}", *common,
+            f"--test_list_file={test_list}", *flags])
+        out[f"decode_{tag}_launches"] = read_counts(counters)
+        out[f"decode_{tag}_seconds"] = secs
+        out["tf32_off_after"] &= off
+        refs[tag] = read_ark(os.path.join(save_dir, "test", "feats.scp"))
+
+    arks = {}
+    for chunk in (SERVE_CHUNK, 7, SERVE_LONG_CHUNK):
+        d = os.path.join(work, f"serve_c{chunk}")
+        reset_counts(counters)
+        secs, lines, off = run_cli(serve_cli.main, [
+            f"--save_dir={ckpt}", f"--output_dir={d}",
+            f"--chunk_frames={chunk}", f"--test_list_file={test_list}",
+            *common])
+        out[f"c{chunk}"] = {"seconds": secs, "log": lines[-1],
+                            "hand_kernel_launches": hand_launches(
+                                read_counts(counters))}
+        out["tf32_off_after"] &= off
+        arks[chunk] = read_ark(os.path.join(d, "feats.scp"))
+    main_ark = arks[SERVE_CHUNK]
+    out["shapes_ok"] = all(
+        main_ark[f"utt{i:04d}"].shape == (int(n), OUT)
+        and np.isfinite(main_ark[f"utt{i:04d}"]).all()
+        for i, n in enumerate(lengths)) and len(main_ark) == len(lengths)
+    for tag, ref in refs.items():
+        out[f"vs_decode_{tag}_max_abs"] = max(
+            float(np.abs(main_ark[u] - ref[u]).max()) for u in ref)
+    out["tol"] = DECODE_TOL_F32
+    out["chunk_sizes_bit_equal"] = {
+        str(c): list(arks[c]) == list(main_ark) and all(
+            np.array_equal(arks[c][u], main_ark[u]) for u in main_ark)
+        for c in (7, SERVE_LONG_CHUNK)}
+    k4 = out["decode_kernel_launches"]
+    out["launches_ok"] = (
+        all(out[f"c{c}"]["hand_kernel_launches"] == 0 for c in arks)
+        and k4["wavefront_fwd"] > 0
+        and hand_launches(k4) == k4["wavefront_fwd"]
+        and hand_launches(out["decode_scan_launches"]) == 0)
+
+    store = UtteranceStore(read_list_file(test_list))
+    x = np.concatenate([np.asarray(store.inputs(i), np.float32)
+                        for i in range(len(store))])
+    enh = StreamingEnhancer(tree, device="cuda")
+    out["timing"] = {str(rows): chunk_timing(enh, x, rows, chunks, counters)
+                     for rows, chunks in ((1, SERVE_TIMED_CHUNKS),
+                                          (SERVE_POOL, SERVE_POOL_STEPS))}
+    out["ok"] = bool(
+        out["shapes_ok"] and out["tf32_off_after"] and out["launches_ok"]
+        and all(out[f"vs_decode_{t}_max_abs"] <= DECODE_TOL_F32
+                for t in refs)
+        and all(out["chunk_sizes_bit_equal"].values())
+        and all(t["hand_kernel_launches"] == 0
+                for t in out["timing"].values()))
+    torch.cuda.synchronize()
+    emit(out)
+    return out
+
+
+def noisy_waves(wav_dir: str) -> dict:
+    """SERVE_WAVS seeded noisy waves of 2-4 s (speech-like + colored
+    noise at 0-15 dB SNR, the port's sim/) as 16-bit wavs and a wav.scp;
+    utt -> the samples as read back."""
+    from rsrgan_tpu_torch.sim import (make_colored_noise,
+                                      make_speech_like_wav, mix_at_snr,
+                                      read_wav, write_wav)
+    rng = np.random.default_rng(29)
+    os.makedirs(wav_dir)
+    waves = {}
+    with open(os.path.join(wav_dir, "wav.scp"), "w") as scp:
+        for i in range(SERVE_WAVS):
+            dur = float(rng.uniform(2.0, 4.0))
+            wave = mix_at_snr(make_speech_like_wav(rng, dur),
+                              make_colored_noise(rng, dur),
+                              float(rng.uniform(0.0, 15.0)))
+            path = os.path.join(wav_dir, f"noisy{i:02d}.wav")
+            write_wav(path, wave)
+            scp.write(f"noisy{i:02d} {path}\n")
+            waves[f"noisy{i:02d}"] = read_wav(path)[0]
+    return waves
+
+
+def serve_wavs(work: str, counters: dict) -> dict:
+    """Wav mode with a full-width LPS->LPS res_lstm_l (257 out): inputs
+    normalized by the waves' own LPS statistics, outputs denormalized by
+    their mean at unit stddev, shifted so that the waves stay well inside
+    16 bits (SERVE_WAV_PEAK, measured on the first wave; every written
+    wave's peak below SERVE_WAV_PEAK_MAX). cli.serve single-stream and
+    --num_streams=SERVE_POOL: the written wavs within one 16-bit step;
+    the library's float waves of the first SERVE_POOL waves pooled
+    against single within SERVE_POOL_TOL of the peak, the CLI's single
+    stream equal to them as 16-bit PCM, and the single stream against
+    the offline chain (cli.train --decode in f32, then resynthesize)
+    above SERVE_SNR_DB."""
+    from rsrgan_tpu_torch.cli import serve as serve_cli
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.data import Cmvn, StoreWriter
+    from rsrgan_tpu_torch.eval.metrics import snr
+    from rsrgan_tpu_torch.features import (FrameOptions, SpectrogramOptions,
+                                           compute_spectrogram_np)
+    from rsrgan_tpu_torch.features.resynth import resynthesize
+    from rsrgan_tpu_torch.serving import StreamingWavEnhancer, StreamPool
+    from rsrgan_tpu_torch.sim import read_wav
+    wav_dir = os.path.join(work, "serve_wavs")
+    waves = noisy_waves(wav_dir)
+    opts = FrameOptions(dither=0.0)
+    lps = {u: compute_spectrogram_np(w, SpectrogramOptions(opts))
+           for u, w in waves.items()}
+    stacked = np.concatenate(list(lps.values()))
+    cmvn = Cmvn(stacked.mean(axis=0), stacked.std(axis=0) + 1e-5)
+    tree = generator_tree(5, out=P)
+    block = SERVE_CHUNK * opts.window_shift
+
+    def stream(enh, w):
+        enh.reset()
+        return np.concatenate([enh.process(w[lo:lo + block])
+                               for lo in range(0, len(w), block)]
+                              + [enh.flush()])
+
+    # the waves scale with exp(shift / 2): one wave at shift 0 sets it
+    first = next(iter(waves.values()))
+    peak0 = float(np.abs(stream(StreamingWavEnhancer(
+        tree, cmvn, Cmvn(cmvn.mean, np.ones(P)), frame_opts=opts,
+        chunk_frames=SERVE_CHUNK), first)).max())
+    shift = 2.0 * float(np.log(SERVE_WAV_PEAK / peak0))
+    labels = Cmvn(cmvn.mean + shift, np.ones(P))
+    data_dir = os.path.join(work, "serve_wav_data")
+    os.makedirs(data_dir)
+    np.savez(os.path.join(data_dir, "train_cmvn.npz"),
+             mean_inputs=cmvn.mean, stddev_inputs=cmvn.stddev,
+             mean_labels=labels.mean, stddev_labels=labels.stddev)
+    with StoreWriter(os.path.join(data_dir, "test.rtu")) as store:
+        for u, f in lps.items():
+            store.add(u, cmvn.apply(f).astype(np.float32))
+    test_list = os.path.join(data_dir, "test.list")
+    with open(test_list, "w") as f:
+        f.write(os.path.join(data_dir, "test.rtu") + "\n")
+    ckpt = os.path.join(work, "serve_wav_ckpt")
+    g_checkpoint(ckpt, tree, P)
+    common = [f"--save_dir={ckpt}", f"--data_dir={data_dir}",
+              f"--input_dim={P}", f"--output_dim={P}",
+              f"--chunk_frames={SERVE_CHUNK}"]
+    samples = sum(len(w) for w in waves.values())
+    out = {"phase": "serve_wavs", "waves": len(waves),
+           "seconds_of_audio": samples / opts.samp_freq,
+           "label_mean_shift": shift, "first_peak_at_shift_0": peak0,
+           "tf32_off_after": True}
+    written = {}
+    for streams in (1, SERVE_POOL):
+        d = os.path.join(work, f"serve_wav_out{streams}")
+        reset_counts(counters)
+        secs, lines, off = run_cli(serve_cli.main, [
+            *common, f"--wav_scp={wav_dir}/wav.scp", f"--output_dir={d}",
+            f"--num_streams={streams}"])
+        out[f"cli_{streams}"] = {
+            "seconds": secs, "log": [ln for ln in lines
+                                     if ln.startswith(("Pool:",
+                                                       "Streaming done"))],
+            "hand_kernel_launches": hand_launches(read_counts(counters))}
+        out["tf32_off_after"] &= off
+        written[streams] = {u: read_wav(os.path.join(d, f"{u}.wav"))[0]
+                            for u in waves}
+    out["cli_pooled_vs_single_max_abs"] = max(
+        float(np.abs(written[1][u] - written[SERVE_POOL][u]).max())
+        for u in waves)
+    out["lengths_ok"] = all(
+        len(written[s][u]) == ((len(w) - opts.window_size)
+                               // opts.window_shift) * opts.window_shift
+        + opts.window_size for s in written for u, w in waves.items())
+    out["written_peak"] = max(float(np.abs(w).max())
+                              for ws in written.values() for w in ws.values())
+
+    # the library's float waves, single against pooled (the same feeds as
+    # the CLI: SERVE_CHUNK frames of samples a call, all streams open)
+    single = StreamingWavEnhancer(tree, cmvn, labels, frame_opts=opts,
+                                  chunk_frames=SERVE_CHUNK)
+    names = list(waves)[:SERVE_POOL]   # one full pool of lanes
+    floats = {u: stream(single, waves[u]) for u in names}
+    pool = StreamPool(tree, cmvn, labels, frame_opts=opts,
+                      chunk_frames=SERVE_CHUNK, capacity=SERVE_POOL)
+    sids = {u: pool.open() for u in names}
+    outs = {u: [] for u in names}
+    for lo in range(0, max(len(waves[u]) for u in names), block):
+        for u in names:
+            if lo < len(waves[u]):
+                outs[u].append(pool.feed(sids[u], waves[u][lo:lo + block]))
+    pooled = {u: np.concatenate(outs[u] + [pool.close(sids[u])])
+              for u in names}
+    out["pooled_vs_single_rel"] = max(
+        float(np.abs(pooled[u] - floats[u]).max() / np.abs(floats[u]).max())
+        for u in names)
+    out["pool_steps"], out["pool_frames"] = pool.steps_run, pool.frames_run
+
+    # the offline chain: f32 --decode on K4, then resynthesis
+    save_dir = os.path.join(work, "serve_wav_decode")
+    shutil.copytree(ckpt, save_dir)
+    secs, _, off = run_cli(train_cli.main, [
+        "--decode", "--trainer=gan_rnn", "--g_type=res_lstm_l",
+        "--bf16=false", "--decode_batch_size=16", f"--save_dir={save_dir}",
+        f"--data_dir={data_dir}", f"--test_list_file={test_list}",
+        f"--input_dim={P}", f"--output_dim={P}"])
+    out["tf32_off_after"] &= off
+    enhanced = read_ark(os.path.join(save_dir, "test", "feats.scp"))
+    snrs = [snr(floats[u], resynthesize(enhanced[u], waves[u], opts))
+            for u in names]
+    # the CLI's single stream wrote the library's waves, as 16-bit PCM
+    out["cli_single_equals_library"] = all(np.array_equal(
+        written[1][u], floats[u].astype("<i2")) for u in names)
+    out["vs_offline_snr_db_min"] = min(snrs)
+    out["vs_offline_snr_db_median"] = float(np.median(snrs))
+    out["snr_gate_db"] = SERVE_SNR_DB
+    out["pool_tol"] = SERVE_POOL_TOL
+    out["peak"] = max(float(np.abs(w).max()) for w in floats.values())
+    out["finite"] = all(np.isfinite(w).all() for w in floats.values())
+    out["ok"] = bool(
+        out["tf32_off_after"] and out["lengths_ok"] and out["finite"]
+        and out["cli_single_equals_library"]
+        and out["cli_pooled_vs_single_max_abs"] <= 1.0
+        and 100.0 < out["written_peak"] < SERVE_WAV_PEAK_MAX
+        and out["pooled_vs_single_rel"] <= SERVE_POOL_TOL
+        and out["vs_offline_snr_db_min"] > SERVE_SNR_DB
+        and all(out[f"cli_{s}"]["hand_kernel_launches"] == 0
+                for s in written))
+    emit(out)
+    return out
+
+
+def phase_serve(work: str) -> dict:
+    """Feature mode, then wav mode."""
+    t0 = time.monotonic()
+    counters = counter_table()
+    feats = serve_features(work, counters)
+    wavs = serve_wavs(work, counters)
+    out = {"phase": "serve", "seconds": time.monotonic() - t0,
+           "ok": feats["ok"] and wavs["ok"]}
+    emit(out)
+    return out
+
+
+# The proxy phase: the recognition proxy's classifier on the card, on the
+# separable corpus of tests/test_proxy.py, with that test's gates; its
+# train rate at the ablation recipes' shape.
+PROXY_STEP_TOL = 1e-5   # f32 card step vs CPU step: summation order only
+# Adam's first step moves a zero-initialized bias element by
+# lr * g / (|g| + eps): where |g| is near eps, its rounding is amplified.
+# Each tensor is held at PROXY_STEP_TOL of max(max |ref|, this many lr):
+# a weight at its own scale, a bias at 1e-3 lr (a wrong update is O(lr))
+PROXY_STEP_FLOOR_LR = 100.0
+# the recipes' call (recipes/run_ablation.sh stage 7): --batch=16384 and
+# the tool's defaults (context 2, hidden 192, 4 epochs) on 257-dim LPS
+PROXY_RATE_DIM = 257
+PROXY_RATE_BATCH = 16384
+PROXY_RATE_UTTS = 160          # 600-1000 frames each: ~128 k frames
+
+
+def proxy_corpus(work: str, snr: float, dim: int = 20, utts: int = 40,
+                 frames: tuple = (60, 100)) -> tuple:
+    """tests/test_proxy.py's synthetic features (class codes + noise at
+    ``snr``; its size by default) and alignments: (scp, ali.scp)."""
+    from rsrgan_tpu_torch.data import ArkWriter
+    from rsrgan_tpu_torch.sim.synthwav import NUM_PHONES
+    rng = np.random.default_rng(7)
+    codes = rng.normal(size=(NUM_PHONES, dim)).astype(np.float32)
+    root = os.path.join(work, f"proxy{dim}")
+    os.makedirs(os.path.join(root, "ali"), exist_ok=True)
+    scp = os.path.join(root, f"feats_{snr}.scp")
+    ali_scp = os.path.join(root, "ali.scp")
+    w = ArkWriter(scp)
+    with open(ali_scp, "w") as af:
+        for i in range(utts):
+            n = int(rng.integers(*frames))
+            labels = rng.integers(0, NUM_PHONES, size=n)
+            labels = np.repeat(labels, 5)[:n].astype(np.int32)
+            feats = (codes[labels] * snr
+                     + rng.normal(size=(n, dim))).astype(np.float32)
+            w.write_next_utt(os.path.join(root, f"feats_{snr}.ark"),
+                             f"u{i}", feats)
+            path = os.path.join(root, "ali", f"u{i}_{snr}.npy")
+            np.save(path, labels)
+            af.write(f"u{i} {path}\n")
+    w.close()
+    return scp, ali_scp
+
+
+def proxy_step_parity(scp: str, ali_scp: str) -> dict:
+    """One f32 train step of the classifier at the tool's default width
+    (hidden 192) on 1,024 frames, on the card and on the CPU from the
+    same weights: per tensor, the gradients within PROXY_STEP_TOL of
+    max |ref| and the post-step parameters within PROXY_STEP_TOL of
+    max(max |ref|, PROXY_STEP_FLOOR_LR * lr)."""
+    import torch
+    from rsrgan_tpu_torch.data import ScpReader
+    from rsrgan_tpu_torch.sim.synthwav import NUM_PHONES
+    from rsrgan_tpu_torch.tools import proxy_asr
+    base, idx, y, _ = proxy_asr.load_corpus(
+        ScpReader(scp), proxy_asr.read_alignments(ali_scp), 2)
+    mean = np.tile(base.mean(axis=0), 5)[None, :].astype(np.float32)
+    std = np.tile(base.std(axis=0) + 1e-5, 5)[None, :].astype(np.float32)
+    sel = np.random.default_rng(1).permutation(len(y))[:1024]
+    lr = 1e-3
+    clfs = {}
+    for device in ("cpu", "cuda"):
+        clfs[device] = proxy_asr.ProxyClassifier(
+            base.shape[1] * 5, NUM_PHONES, 192, lr, seed=0, device=device)
+    clfs["cuda"].load_params(clfs["cpu"].numpy_params())
+    grads = {}
+    for device, clf in clfs.items():
+        arrays = [torch.from_numpy(np.ascontiguousarray(a)).to(clf.device)
+                  for a in (base, idx, mean, std, sel, y)]
+        grads[device] = {k: g.cpu() for k, g in
+                         clf.gradients(*arrays)[1].items()}
+        clf.train_step(*arrays)
+    got, want = ({k: v.cpu() for k, v in clfs[d].params.items()}
+                 for d in ("cuda", "cpu"))
+    grad_rel = rel_errs(grads["cuda"], grads["cpu"])
+    post = {k: float((got[k] - want[k]).abs().max())
+            / max(float(want[k].abs().max()), PROXY_STEP_FLOOR_LR * lr)
+            for k in want}
+    return {"grad_rel_err_by_tensor": grad_rel,
+            "post_step_err_by_tensor": post, "tol": PROXY_STEP_TOL,
+            "floor_lr": PROXY_STEP_FLOOR_LR,
+            "ok": max(grad_rel.values()) <= PROXY_STEP_TOL
+            and max(post.values()) <= PROXY_STEP_TOL}
+
+
+def proxy_rate(work: str) -> dict:
+    """The tool's train frames/s as the ablation recipes call it
+    (--batch=16384; context 2, hidden 192, 4 epochs) on ~128 k frames of
+    257-dim synthetic rows; then torch.profiler over 4 of its steps:
+    device time against wall time."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from rsrgan_tpu_torch.data import ScpReader
+    from rsrgan_tpu_torch.sim.synthwav import NUM_PHONES
+    from rsrgan_tpu_torch.tools import proxy_asr
+    scp, ali_scp = proxy_corpus(work, 1.0, dim=PROXY_RATE_DIM,
+                                utts=PROXY_RATE_UTTS, frames=(600, 1001))
+    secs, lines, off = run_cli(proxy_asr.main, [
+        f"--train_scp={scp}", f"--ali_scp={ali_scp}",
+        f"--batch={PROXY_RATE_BATCH}",
+        f"--out={os.path.join(work, 'proxy_rate.json')}"])
+    rate = [ln for ln in lines if "train frames/s" in ln][0]
+    base, idx, y, _ = proxy_asr.load_corpus(
+        ScpReader(scp), proxy_asr.read_alignments(ali_scp), 2)
+    clf = proxy_asr.ProxyClassifier(PROXY_RATE_DIM * 5, NUM_PHONES, 192,
+                                    1e-3, seed=0, device="cuda")
+    mean = np.tile(base.mean(axis=0), 5)[None, :].astype(np.float32)
+    std = np.tile(base.std(axis=0) + 1e-5, 5)[None, :].astype(np.float32)
+    arrays = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+              for a in (base, idx, mean, std)]
+    y_d = torch.from_numpy(y).cuda()
+    order = torch.from_numpy(np.random.default_rng(2).permutation(len(y)))
+    sels = [order[k * PROXY_RATE_BATCH:(k + 1) * PROXY_RATE_BATCH].cuda()
+            for k in range(6)]
+    for sel in sels[:2]:
+        clf.train_step(*arrays, sel, y_d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for sel in sels[2:]:
+            clf.train_step(*arrays, sel, y_d)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 4
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / 4
+    return {"frames": int(len(y)), "dim": PROXY_RATE_DIM * 5,
+            "batch": PROXY_RATE_BATCH, "seconds": secs, "log": rate,
+            "tf32_off_after": off,
+            "train_frames_per_s": float(re.search(
+                r"([\d,]+) train frames/s", rate).group(1).replace(",", "")),
+            "profiled_wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms,
+            "kernels_per_step": len(events) / 4,
+            "device_busy_share": device_ms / wall_ms}
+
+
+def phase_proxy(work: str) -> dict:
+    """``tools.proxy_asr.main`` on the card over tests/test_proxy.py's
+    separable corpus and its noisy twin, gated as that test gates (clean
+    FER < 0.25, noisy FER > clean FER + 0.1, SER <= FER + 0.35), TF32
+    turned on before and found off after; no hand kernel launched; the
+    card step against the CPU step; the train rate at the recipes'
+    shape."""
+    from rsrgan_tpu_torch.tools import proxy_asr
+    t0 = time.monotonic()
+    clean_scp, ali_scp = proxy_corpus(work, 4.0)
+    noisy_scp, _ = proxy_corpus(work, 0.3)
+    counters = counter_table()
+    out_json = os.path.join(work, "proxy20", "proxy.json")
+    reset_counts(counters)
+    secs, _, off = run_cli(proxy_asr.main, [
+        f"--train_scp={clean_scp}", f"--ali_scp={ali_scp}",
+        f"--eval=noisy={noisy_scp}", f"--holdout_scp={clean_scp}",
+        "--context=1", "--hidden=32", "--epochs=20", "--batch=128",
+        "--lr=3e-3", f"--out={out_json}"])
+    launches = hand_launches(read_counts(counters))
+    with open(out_json) as f:
+        result = json.load(f)
+    clean, noisy = result["systems"]["clean"], result["systems"]["noisy"]
+    step = proxy_step_parity(clean_scp, ali_scp)
+    rate = proxy_rate(work)
+    out = {"phase": "proxy", "seconds": secs, "result": result,
+           "tf32_off_after": off and rate["tf32_off_after"],
+           "hand_kernel_launches": launches, "step": step,
+           "recipe_rate": rate, "phase_seconds": time.monotonic() - t0}
+    out["gates"] = {"clean_fer<0.25": clean["fer"] < 0.25,
+                    "noisy_fer>clean_fer+0.1":
+                        noisy["fer"] > clean["fer"] + 0.1,
+                    "clean_ser<=fer+0.35":
+                        0.0 <= clean["ser"] <= clean["fer"] + 0.35}
+    out["ok"] = bool(all(out["gates"].values()) and out["tf32_off_after"]
+                     and step["ok"] and launches == 0)
+    emit(out)
+    return out
+
+
 def card_name_and_limit() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -2439,7 +3041,8 @@ def card_name_and_limit() -> str:
 
 
 PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
-          "train_mse", "train_frame", "feed", "decode", "chain")
+          "train_mse", "train_frame", "feed", "decode", "chain", "serve",
+          "proxy")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -2637,6 +3240,10 @@ def main(argv=None) -> int:
         if "chain" in phases:
             results["chain"] = phase_chain(work)
             oks.append(results["chain"]["ok"])
+        if "serve" in phases:
+            oks.append(phase_serve(work)["ok"])
+        if "proxy" in phases:
+            oks.append(phase_proxy(work)["ok"])
     if not all(oks):
         return fail("a phase failed (see the lines with \"ok\": false)")
     if set(phases) != set(PHASES):

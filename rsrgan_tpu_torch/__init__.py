@@ -5,8 +5,8 @@ The port runs on one NVIDIA H100. It mirrors the module names of
 stays the reference that every module here is tested against.
 
 Layer map (what this package holds today — the LSGAN, MSE and frame
-trainers and their decode, data preparation, and the waveform chain from
-a wave to a score):
+trainers and their decode, data preparation, the waveform chain from a
+wave to a score, streaming serving and the recognition proxy):
   sim/       numpy and scipy copies of the corpus simulation: wav I/O,
              RIR convolution and SNR mixing, synthetic speech and rooms
   features/  the LPS and hires MFCC front-end in PyTorch on any device
@@ -29,11 +29,19 @@ a wave to a score):
   models/    ResLstmGenerator, LstmGenerator, the frame generators DNN,
              R-CED and CNN, LstmDiscriminator, DnnDiscriminator, their
              registries and the weight bridge to flax trees
+  serving/   chunked enhancement with carried LSTM state (the eager
+             cell on the card), wav -> wav streaming (host numpy DSP) and
+             the batched multi-stream pool
   cli/       ``python -m rsrgan_tpu_torch.cli.train`` (train, --decode,
-             --profile_dir), ``prepare``, ``simulate``, ``extract`` (on
-             the card), ``resynth``, ``score`` and ``plot``
+             --profile_dir), ``serve`` (features or wavs, streamed),
+             ``prepare``, ``simulate``, ``extract`` (on the card),
+             ``resynth``, ``score`` and ``plot``
+  device.py  the run's device (a missing card is an error, never a
+             fall-back to the CPU) and f32 without TF32
   tools/     ``e2e_chain`` (the recipes' wave-to-score chains through the
-             CLIs, with their gates) and the kernels' timing tools
+             CLIs, with their gates), ``proxy_asr`` (the recognition
+             proxy: a frame classifier trained on clean features scores
+             enhanced ones) and the kernels' timing tools
 
 This package imports ``torch`` and never ``jax``, ``flax`` or ``msgpack``.
 """
