@@ -89,7 +89,15 @@ JSON line each; any failure ends the run non-zero:
    every G-layer backward on K3's resident route and none on
    csrc/lstm_bwd.cu; one f32 step through the kernels against
    --lstm_impl=scan (gradients and post-step params, GRAD_TOL); and
-   ``--decode`` from the epoch's checkpoint.
+   ``--decode`` from the epoch's checkpoint. Then ``--g_type=bnlstm``
+   (recipes/run_rnn.sh's bnlstm arm: 3 x BnLstm(760, proj 280), the
+   eager cell, no hand kernel): one epoch at B=16 through the CLI (all 8
+   iterations; every hand kernel's count 0 over it), its ms per
+   iteration, the CUDA kernels and copies of one train step on the
+   longest bucket (torch.profiler), the f32 step on the card against the
+   same step on the CPU from one state (gradients, the state after it
+   with the folded batch_stats, the losses; GRAD_TOL), and ``--decode``
+   from the epoch's checkpoint.
 8. train_frame — the frame trainers through the CLI in f32, with TF32
    turned on for the process before each run so that only the CLI's own
    setting turns it off: ``--trainer=dnn`` and ``--trainer=gan_dnn`` at
@@ -101,7 +109,20 @@ JSON line each; any failure ends the run non-zero:
    step on the card against the same step on the CPU (G's output and
    the last layer's gradients, FRAME_STEP_TOL), and the DNN's step with
    TF32 on, which that gate must catch.
-9. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
+9. segan — ``--trainer=segan`` at recipes/run_segan.sh's configuration
+   (the conv auto-encoder G, kwidth 20, depths 16..1024; the VBN conv D,
+   kwidth 31; 7 spliced 257-dim frames to 40; B=256; RMSProp; L1 weight
+   100), f32: one train step on the card against the same step on the
+   CPU from one state, z and D's noise handed in (G's forward and D's
+   losses at SEGAN_FORWARD_TOL; every gradient, the state after the step
+   and G's losses at SEGAN_STEP_TOL, the f32 step's own distance from
+   f64 taken into account); one
+   epoch through the CLI over the train store's frames with labels G
+   can learn (``segan_stores``), accepted, finite losses, no hand kernel,
+   TF32 off after it; ``--decode`` from its checkpoint; ms per
+   iteration, frames/s and the busy share of 3 profiled steps; then the
+   WaveNet-style G's step (64 rows) against the CPU.
+10. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
    upload of its f32 and bf16 tables (GB/s over the f32 bytes that cross
    the link, twice each, and the reference corpus's ~36 M frames
    extrapolated from it); the gather of one batch at B=16 and 32,
@@ -111,12 +132,12 @@ JSON line each; any failure ends the run non-zero:
    prefetch on, block 1, two passes, each residency's gathers queued
    behind a device sleep), every gathered batch bit-equal to the host
    batch of its shard's StoreView batcher.
-10. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
+11. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
    path: its launch count is reset before and read after), and f32 runs
    of the kernel and of --lstm_impl=scan held against each other.
-11. chain — the recipes' chains through the port's CLIs. First the
+12. chain — the recipes' chains through the port's CLIs. First the
    features on the card: ``import scipy`` and its version; the waves of
    tests/fixtures/oracle_feats.npz and dsp_golden.npz through
    ``cli/extract.py``'s engine on the card at dither 0, gated at the
@@ -138,7 +159,7 @@ JSON line each; any failure ends the run non-zero:
    chains launched it at (T=300, ragged rows) against its twin, f32 and
    bf16, at the kernel phases' tolerances.
 
-12. serve — the streaming front-end (serving/, cli/serve.py) at
+13. serve — the streaming front-end (serving/, cli/serve.py) at
    res_lstm_l's full width, f32, the eager cell (no hand kernel: every
    launch count is 0 while streaming). Feature mode: ``cli.serve.main``
    over the decode phase's 32 utterances at --chunk_frames=50, from a
@@ -156,7 +177,7 @@ JSON line each; any failure ends the run non-zero:
    float waves clipped to 16 bits), the library's float waves pooled
    against single within 1e-5 of the peak and against the offline chain
    (f32 --decode, then resynthesize) above 35 dB SNR.
-13. proxy — ``tools.proxy_asr.main`` on the card over
+14. proxy — ``tools.proxy_asr.main`` on the card over
    tests/test_proxy.py's separable corpus and its noisy twin, with that
    test's gates (clean FER < 0.25, noisy FER > clean + 0.1, SER <= FER +
    0.35), TF32 off after, its train frames/s, no hand kernel; then one
@@ -1691,6 +1712,80 @@ def speed_of(train: dict) -> dict:
             "ms_per_iteration": train["ms_per_iteration"]}
 
 
+# the bnlstm f32 step card vs CPU: the first frames of a B=16 batch
+BNLSTM_PARITY_T = 64
+
+
+def bnlstm_mse(train_cli, counters, flags, tr_list: str, cv_list: str,
+               data_dir: str, work: str) -> dict:
+    """--trainer=rnn --g_type=bnlstm (recipes/run_rnn.sh's bnlstm arm: 3 x
+    BnLstm(760, proj 280) at B=16, bf16 products, the eager cell): one
+    epoch through the CLI on its default (device) feed, all of the train
+    store's 8 iterations, every hand kernel's count 0 over it; its ms per
+    iteration; the CUDA kernels and copies of one train step on the
+    shortest bucket (torch.profiler); the f32 step on the card against
+    the CPU on that batch's first BNLSTM_PARITY_T frames (the CPU's cell
+    at full width takes seconds a frame), from one state with Adam's
+    moments off zero (gradients, the state after it with the folded
+    batch_stats, the losses; GRAD_TOL); --decode from the epoch's
+    checkpoint."""
+    import torch
+    from rsrgan_tpu_torch.data import (SequenceBatcher, UtteranceStore,
+                                       read_list_file)
+    from rsrgan_tpu_torch.models import get_generator
+    from rsrgan_tpu_torch.training import MseTrainer
+    row, cv_row, launches, secs = cli_epoch(
+        train_cli, counters, flags("mse_bnlstm", "--g_type=bnlstm"))
+    store = UtteranceStore(read_list_file(tr_list))
+    first = min(SequenceBatcher(store, B, seed=1),
+                key=lambda b: b.inputs.shape[1])
+
+    def trainer(cdt, device="cpu"):
+        g = get_generator("bnlstm", input_dim=P, output_dim=OUT,
+                          compute_dtype=cdt,
+                          generator=torch.Generator().manual_seed(41))
+        return MseTrainer(g.to(device), output_dim=OUT, l2_scale=1e-5,
+                          max_grad_norm=15.0)
+
+    def arrays(t_max, dev):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            first.inputs[:, :t_max], first.labels[:, :t_max],
+            np.minimum(first.lengths, t_max).astype(np.int32))]
+
+    tr = trainer(torch.bfloat16, "cuda")
+    st = tr.init_state()
+    batch = arrays(first.inputs.shape[1], "cuda")
+    tr.train_step(st, *batch, 5e-4)
+    window = profile_window(lambda: tr.train_step(st, *batch, 5e-4), 1)
+    del tr, st, batch
+
+    def step(tr, st, dev):
+        m = tr.train_step(st, *arrays(BNLSTM_PARITY_T, dev), 5e-4)
+        return {k: float(v) for k, v in m.items()}
+
+    parity = card_vs_cpu_step(lambda: trainer(torch.float32),
+                              lambda tr: tr.init_state(), step,
+                              ("generator",))
+    parity.update({"T": BNLSTM_PARITY_T, "tol": GRAD_TOL})
+    parity["ok"] = all(parity[k] <= GRAD_TOL for k in (
+        "metrics_rel_err", "grad_rel_err", "post_step_state_rel_err"))
+    save_dir = os.path.join(work, "mse_bnlstm")
+    decode = decode_checkpoint(
+        train_cli, ["--trainer=rnn", "--g_type=bnlstm",
+                    "--decode_batch_size=16", f"--input_dim={P}",
+                    f"--output_dim={OUT}", f"--data_dir={data_dir}",
+                    f"--test_list_file={cv_list}", f"--save_dir={save_dir}"],
+        save_dir, 16)
+    out = {"seconds": secs, "speed": speed(row),
+           "losses": {k: v for k, v in row.items() if k.endswith("loss")},
+           "hand_kernel_launches": hand_launches(launches),
+           "profiled_step": {"T": int(first.inputs.shape[1]), **window},
+           "parity_f32_card_vs_cpu": parity, "decode": decode}
+    out["ok"] = (finite_losses(row, cv_row) and parity["ok"]
+                 and decode["ok"] and out["hand_kernel_launches"] == 0)
+    return out
+
+
 def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
     """--trainer=rnn --g_type=res_lstm_l through the CLI (G alone, MSE;
     recipes/run_rnn.sh's B=16 and lr): one epoch on the device feed (the
@@ -1751,6 +1846,8 @@ def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
              and launches32["lstm_bwd"] == 0 and launches32["lstm_fwd"] == 0
              and launches32["wavefront_fwd_train"] == steps32)
     parity = mse_step_parity(tr_list)
+    bnlstm = bnlstm_mse(train_cli, counters, flags, tr_list, cv_list,
+                        data_dir, work)
     decode = decode_checkpoint(
         train_cli, ["--trainer=rnn", "--g_type=res_lstm_l",
                     "--decode_batch_size=16", f"--input_dim={P}",
@@ -1770,11 +1867,11 @@ def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
            "losses": losses["mse"], "b32": {
                "launches": launches32, "speed": speed(row32),
                "k3_resident_route": k3_ok},
-           "parity_f32": parity, "decode": decode,
+           "parity_f32": parity, "decode": decode, "bnlstm": bnlstm,
            "name, power.limit": card_name_and_limit()}
     out["ok"] = (main_ok and feeds_equal and k3_ok and parity["ok"]
                  and decode["ok"] and finite_losses(row, cv_row)
-                 and finite_losses(row32, cv32))
+                 and finite_losses(row32, cv32) and bnlstm["ok"])
     emit(out)
     return out
 
@@ -1909,6 +2006,265 @@ def phase_train_frame(work: str, prepared: dict) -> dict:
            "name, power.limit": card_name_and_limit()}
     out["ok"] = (all(r["ok"] for r in runs.values())
                  and all(p["ok"] for p in parity.values()) and tf32["ok"])
+    emit(out)
+    return out
+
+
+def profile_window(fn, reps: int) -> dict:
+    """``reps`` calls of fn() under torch.profiler, ending in a
+    synchronize: per call the wall ms, the device ms of the CUDA kernels
+    and copies, their counts, and the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in events if e.name.startswith(("Memcpy", "Memset"))]
+    device_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+    return {"calls": reps, "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "cuda_kernels": (len(events) - len(copies)) / reps,
+            "cuda_copies": len(copies) / reps}
+
+
+def card_vs_cpu_step(make_trainer, init, step, names) -> dict:
+    """One f32 train step of a trainer on the card and the same step on
+    the CPU, from one state (made on the CPU, copied to the card):
+    ``make_trainer()`` builds it on the CPU, ``init(trainer)`` its state
+    (the CPU's, with its nets' optimizer moments off zero, is what the
+    card's run loads), ``step(trainer, state, device)`` runs the step and
+    returns its metrics. Max |diff| / max |ref| (the CPU's) per tensor of the
+    gradients (``grad_log``), of the whole state after the step
+    (``state_tree``: params, optimizer moments, EMA, the mutable
+    collections) and of the metrics."""
+    import torch
+    from rsrgan_tpu_torch.models import flatten_tree
+    from rsrgan_tpu_torch.tools.step_conditioning import moments_off_zero
+    from rsrgan_tpu_torch.training import load_state_tree, state_tree
+    t0 = time.monotonic()
+    out = {}
+    start = None
+    for dev in ("cpu", "cuda"):
+        tr = make_trainer()
+        if dev == "cuda":
+            for net in names:
+                getattr(tr, net).cuda()
+        st = init(tr)
+        if start is None:
+            for i, net in enumerate(("net",) if hasattr(st, "net")
+                                    else ("g", "d")):
+                moments_off_zero(getattr(st, net), 71 + i)
+            start = state_tree(st)
+        else:
+            load_state_tree(st, start)
+        tr.grad_log = []
+        metrics = step(tr, st, torch.device(dev))
+        grads = {}
+        for i, entry in enumerate(tr.grad_log):
+            tag, g = entry if isinstance(entry, tuple) else ("g", entry)
+            grads.update({f"{i}:{tag}:{k}": v.cpu() for k, v in g.items()})
+        out[dev] = ({k: torch.as_tensor(float(v)) for k, v in
+                     metrics.items()}, grads,
+                    {k: torch.from_numpy(np.asarray(v, np.float32))
+                     for k, v in flatten_tree(state_tree(st)).items()
+                     if v is not None})
+    errs = [rel_errs(card, cpu) for card, cpu in zip(out["cuda"],
+                                                     out["cpu"])]
+    return {"metrics_rel": errs[0], "metrics_rel_err": max(errs[0].values()),
+            "grad_rel_err": max(errs[1].values()),
+            "worst_grad": max(errs[1], key=errs[1].get),
+            "post_step_state_rel_err": max(errs[2].values()),
+            "worst_state": max(errs[2], key=errs[2].get),
+            "collections_rel_err": max([v for k, v in errs[2].items()
+                                        if ".extra." in k] or [0.0]),
+            "seconds": time.monotonic() - t0}
+
+
+# recipes/run_segan.sh: the conv auto-encoder G (kwidth 20, the default
+# --g_enc_depths 16..1024, bias on the deconvolutions), the VBN conv D
+# (kwidth 31), 7 spliced 257-dim frames (context 3 + 3) to 40, B=256,
+# RMSProp at 1e-3 for both nets, 1 D + 1 G update, L1 weight 100.
+SEGAN_CONTEXT = 3
+SEGAN_B = 256
+SEGAN_FLAGS = ["--trainer=segan", "--g_type=ae", f"--batch_size={SEGAN_B}",
+               "--g_learning_rate=0.001", "--d_learning_rate=0.001",
+               "--disc_updates=1", "--gen_updates=1", "--bias_deconv=True",
+               "--init_l1_weight=100.0", "--deconv_type=deconv",
+               f"--input_dim={P}", f"--output_dim={OUT}",
+               f"--left_context={SEGAN_CONTEXT}",
+               f"--right_context={SEGAN_CONTEXT}"]
+SEGAN_HP = {"g_lr": 1e-3, "d_lr": 1e-3, "l1_lambda": 100.0,
+            "disc_noise_std": 0.05}
+# SEGAN's f32 step on the card against the same step on the CPU: both
+# full f32 (TF32 off), one state (the optimizer moments off zero), the
+# same z and noise. G's forward and D's losses before its update are
+# well conditioned: cuDNN picks its own algorithm for each convolution,
+# and other summation orders leave ~1e-6 (gated at SEGAN_FORWARD_TOL).
+# The gradients, the state after the step and G's losses (taken after
+# D's update) are not: VBN divides by
+# sqrt(eps + E[x^2] - E[x]^2), which cancels where a channel's mean
+# dwarfs its spread, and the G update's gradient passes a D that its
+# RMSProp step has just moved. The CPU's own f32 step of the auto-encoder
+# SEGAN lies 1.03e-2 of a tensor's largest entry from its f64 step, in a
+# gradient and in a post-step parameter (tools/step_conditioning.py,
+# 256 rows); they are gated at SEGAN_STEP_TOL, 5x that. A wiring, padding
+# or kernel-flip fault gives O(1).
+SEGAN_FORWARD_TOL = 1e-4
+SEGAN_STEP_TOL = 5e-2
+# the wave generator's step (10 dilated blocks over 1 + 1024 channels of
+# W = 1799 positions; z alone is 1,024 x 1,799 floats a row): 64 rows
+SEGAN_WAVE_B = 64
+
+
+def segan_trainer(wave: bool, seed: int):
+    """run_segan.sh's SEGAN trainer on the CPU, seeded weights: the AE
+    generator, or with ``wave`` the WaveNet-style one."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    args = train_cli.build_parser().parse_args(
+        SEGAN_FLAGS + (["--g_type=wave"] if wave else [])
+        + [f"--seed={seed}"])
+    return train_cli.build_trainer(args, torch.device("cpu"), torch.float32)
+
+
+def segan_step_parity(tr_list: str, wave: bool, rows: int) -> dict:
+    """One f32 SeganTrainer.train_step on the card against the CPU from
+    one state (init_state on the first ``rows`` frames of the store's
+    frame batcher, on the CPU), z and D's noise drawn from one seeded CPU
+    generator in both runs; G's forward with z = 0 too. Gated: G's
+    forward and D's losses (before its update) at SEGAN_FORWARD_TOL;
+    every gradient, the whole state after the step (D's vbn_stats
+    included) and G's losses (after D's update) at SEGAN_STEP_TOL."""
+    import torch
+    from rsrgan_tpu_torch.data import (FrameBatcher, UtteranceStore,
+                                       read_list_file)
+    batcher = FrameBatcher(UtteranceStore(read_list_file(tr_list)), rows,
+                           SEGAN_CONTEXT, SEGAN_CONTEXT, seed=7)
+    x, y = next(iter(batcher))
+    xt, yt = torch.from_numpy(x), torch.from_numpy(y)
+    fwd = {}
+
+    def init(tr):
+        return tr.init_state(xt.to(next(tr.generator.parameters()).device))
+
+    def step(tr, st, dev):
+        draws = torch.Generator().manual_seed(11)
+        with torch.no_grad():
+            fwd[dev.type] = tr.generator(xt.to(dev)).cpu()
+        m = tr.train_step(st, xt.to(dev), yt.to(dev), SEGAN_HP,
+                          lambda shape: torch.randn(shape, generator=draws))
+        return {k: float(v) for k, v in m.items()}
+
+    out = card_vs_cpu_step(lambda: segan_trainer(wave, 61), init, step,
+                           ("generator", "discriminator"))
+    out["forward_rel_err"] = max(rel_errs({"g": fwd["cuda"]},
+                                          {"g": fwd["cpu"]}).values())
+    out.update({"rows": rows, "forward_tol": SEGAN_FORWARD_TOL,
+                "step_tol": SEGAN_STEP_TOL})
+    d_losses = max(v for k, v in out["metrics_rel"].items()
+                   if k.startswith("d_"))
+    out["ok"] = (max(out["forward_rel_err"], d_losses) <= SEGAN_FORWARD_TOL
+                 and max(out["grad_rel_err"], out["post_step_state_rel_err"],
+                         out["metrics_rel_err"]) <= SEGAN_STEP_TOL)
+    return out
+
+
+def segan_stores(prepared: dict, work: str) -> dict:
+    """The prepare phase's train and cv stores with labels that G can
+    learn: each frame's 40 labels a fixed function of its 257 inputs
+    (tanh of a seeded projection). The prepare stores' labels are noise,
+    independent of the inputs: on them L1 cannot fall, SEGAN's first
+    epoch raises the CV loss and is rejected, and with no earlier
+    checkpoint to roll back to the CLI exits 1 (as the JAX CLI does)."""
+    from rsrgan_tpu_torch.data import (StoreWriter, UtteranceStore,
+                                       read_list_file)
+    proj = (np.random.default_rng(17).normal(size=(P, OUT))
+            / np.sqrt(P)).astype(np.float32)
+    out_dir = os.path.join(work, "segan_data")
+    os.makedirs(out_dir)
+    lists = {}
+    for split in ("train", "cv"):
+        store = UtteranceStore(read_list_file(prepared[split]))
+        path = os.path.join(out_dir, f"{split}.rtu")
+        with StoreWriter(path) as w:
+            for i, utt in enumerate(store.utt_ids):
+                x = np.asarray(store.inputs(i))
+                w.add(utt, x, 1.5 * np.tanh(x @ proj))
+        lists[split] = os.path.join(out_dir, f"{split}.list")
+        with open(lists[split], "w") as f:
+            f.write(path + "\n")
+    return lists
+
+
+def phase_segan(work: str, prepared: dict) -> dict:
+    """--trainer=segan at recipes/run_segan.sh's configuration: the f32
+    step on the card against the CPU (B=256); one epoch of the CLI over
+    the train store's frames with learnable labels (``segan_stores``;
+    finite losses, the epoch accepted, no hand kernel launched, TF32 off
+    after it) and --decode from its checkpoint (one finite 40-wide matrix
+    per cv utterance); its ms per iteration and frames/s, and the busy
+    share of 3 profiled steps; then the WaveNet-style G's step against
+    the CPU (SEGAN_WAVE_B rows)."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.data import (FrameBatcher, UtteranceStore,
+                                       read_list_file)
+    counters = counter_table()
+    tr_list, data_dir = prepared["train"], prepared["data_dir"]
+    t0 = time.monotonic()
+    parity = segan_step_parity(tr_list, wave=False, rows=SEGAN_B)
+    learnable = segan_stores(prepared, work)
+    cv_list = learnable["cv"]
+    save_dir = os.path.join(work, "segan")
+    argv = SEGAN_FLAGS + [f"--data_dir={data_dir}", f"--save_dir={save_dir}"]
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    row, cv_row, launches, secs = cli_epoch(train_cli, counters, argv + [
+        "--min_epoches=1", "--max_epoches=1",
+        f"--tr_list_file={learnable['train']}", f"--cv_list_file={cv_list}",
+        "--seed=5"])
+    tf32_off = not (torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+    ckpt = os.path.isfile(os.path.join(save_dir, "SEGAN-1.ckpt"))
+    decode = decode_checkpoint(train_cli, argv + [
+        f"--test_list_file={cv_list}"], save_dir, 16)
+
+    # the busy share of the step the epoch ran: 3 steps, after one
+    trainer = segan_trainer(False, 5)
+    trainer.generator.cuda()
+    trainer.discriminator.cuda()
+    x, y = next(iter(FrameBatcher(UtteranceStore(read_list_file(tr_list)),
+                                  SEGAN_B, SEGAN_CONTEXT, SEGAN_CONTEXT)))
+    x, y = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    state = trainer.init_state(x)
+    rand = torch.Generator(device="cuda").manual_seed(3)
+    trainer.train_step(state, x, y, SEGAN_HP, rand)
+    window = profile_window(
+        lambda: trainer.train_step(state, x, y, SEGAN_HP, rand), 3)
+    del trainer, state
+
+    wave = segan_step_parity(tr_list, wave=True, rows=SEGAN_WAVE_B)
+    out = {"phase": "segan", "B": SEGAN_B, "seconds": time.monotonic() - t0,
+           "epoch_seconds": secs, "parity_f32_card_vs_cpu": parity,
+           "speed": speed(row),
+           "losses": {k: v for k, v in row.items() if k.endswith("loss")},
+           "cv_losses": {k: v for k, v in cv_row.items()
+                         if k.endswith("loss")},
+           "checkpoint": ckpt, "decode": decode,
+           "tf32_off_after_cli": tf32_off,
+           "hand_kernel_launches": hand_launches(launches),
+           "profiled_steps": window, "wave_parity_f32_card_vs_cpu": wave,
+           "name, power.limit": card_name_and_limit()}
+    out["ok"] = (parity["ok"] and wave["ok"] and finite_losses(row, cv_row)
+                 and ckpt and decode["ok"] and tf32_off
+                 and out["hand_kernel_launches"] == 0)
     emit(out)
     return out
 
@@ -3041,8 +3397,8 @@ def card_name_and_limit() -> str:
 
 
 PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
-          "train_mse", "train_frame", "feed", "decode", "chain", "serve",
-          "proxy")
+          "train_mse", "train_frame", "segan", "feed", "decode", "chain",
+          "serve", "proxy")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -3218,7 +3574,8 @@ def main(argv=None) -> int:
         oks.append(phase_grad()["ok"])
     with tempfile.TemporaryDirectory() as work:
         # the train phases train from the prepare phase's stores
-        if {"prepare", "train", "train_mse", "train_frame"} & set(phases):
+        if {"prepare", "train", "train_mse", "train_frame",
+                "segan"} & set(phases):
             prepared = phase_prepare(work)
             oks.append(prepared["ok"])
         if "train" in phases:
@@ -3232,6 +3589,8 @@ def main(argv=None) -> int:
             oks.append(results["train_mse"]["ok"])
         if "train_frame" in phases:
             oks.append(phase_train_frame(work, prepared["lists"])["ok"])
+        if "segan" in phases:
+            oks.append(phase_segan(work, prepared["lists"])["ok"])
         if "feed" in phases:
             oks.append(phase_feed(work)["ok"])
         if "decode" in phases:

@@ -18,14 +18,21 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
   resident shards (``--feed_rotation_block``, ``--feed_prefetch``) when
   the tables exceed ``RSRGAN_FEED_HBM_BUDGET``; otherwise, and for the
   graph-fed loop, a prefetch thread builds host batches;
+* ``--g_type bnlstm`` (recurrent batch norm, the eager cell) with
+  ``--trainer rnn``; ``--trainer gan_rnn`` refuses it, as the JAX package
+  cannot train it;
 * the frame trainers, in f32 whatever ``--bf16`` says: ``--trainer dnn``
-  (MSE, ``--g_type dnn|rced|cnn``, ``--batch_norm`` for dnn and rced)
-  and ``--trainer gan_dnn`` (the frame LSGAN, D conditioned on the center
+  (MSE, ``--g_type dnn|rced|cnn``, ``--batch_norm`` for dnn and rced),
+  ``--trainer gan_dnn`` (the frame LSGAN, D conditioned on the center
   input frame; ``--batch_norm`` is refused, as the JAX package cannot run
-  it), on shuffled frame batches of ``--left_context``/``--right_context``
-  spliced frames, with a CV pass before the first epoch, an accept or a
-  reject after each (a reject rolls the whole state back to the last
-  checkpoint) and the staged learning-rate decay (``--keep_lr``,
+  it) and ``--trainer segan`` (SEGAN: the conv auto-encoder G for
+  ``--g_type ae|dnn|lstm``, the WaveNet-style G for any other, the VBN
+  conv D conditioned on the spliced input; ``--g_enc_depths``, ``--g_nl``,
+  ``--bias_downconv``, ``--bias_deconv``, ``--bias_d_conv``,
+  ``--init_l1_weight``; RMSProp, no clipping), on shuffled frame batches
+  of ``--left_context``/``--right_context`` spliced frames, with a CV
+  pass before the first epoch, an accept or a reject after each (a
+  reject rolls the whole state back to the last checkpoint) and the staged learning-rate decay (``--keep_lr``,
   ``--start_decay_impr``, ``--end_decay_impr``, ``--decay_factor``,
   ``--min_epoches``);
 * for every trainer: checkpoints and the ``.meta.json`` sidecar in the
@@ -33,10 +40,10 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
   checkpoints; periodic snapshots (``--checkpoint_every_secs``, a newer
   one wins on resume); JSONL metrics and, with ``--tensorboard`` (the
   default), event files under ``save_dir/train`` and ``save_dir/eval``;
-* ``--decode`` for every trainer but ``segan``: G forward (batch-1 over
-  each utterance's frames for the frame trainers, BatchNorm on the
-  checkpoint's running statistics), CMVN denormalisation, Kaldi
-  feats.ark/feats.scp (``--compress``: compressed matrices, ``--text``:
+* ``--decode`` for every trainer: G forward (batch-1 over each
+  utterance's frames for the frame trainers, BatchNorm and BnLstm on the
+  checkpoint's running statistics, SEGAN's G with z = 0), CMVN
+  denormalisation, Kaldi feats.ark/feats.scp (``--compress``: compressed matrices, ``--text``:
   a text archive);
 * ``--profile_dir``: a torch.profiler trace of the second iteration (the
   second epoch of the frame loop), as the JAX CLI traces with
@@ -46,9 +53,9 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
 wavefront stack for G, the single-layer kernels for D below 64 rows),
 ``pallas`` the single-layer kernels for every layer, ``scan`` the eager
 cell under autograd (the f32 oracle). The CLI turns TF32 off, so f32 is
-f32 on a card. ``--trainer segan``, ``--g_type bnlstm``, ``--num_gpu >
-1`` and multi-process runs raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+f32 on a card. ``--num_gpu > 1`` and multi-process runs raise
+``NotImplementedError`` naming their ROADMAP.md item; ``--deconv_type``
+is parsed and unused, as in JAX.
 
     python -m rsrgan_tpu_torch.cli.train --trainer=gan_rnn \\
         --g_type=res_lstm_l --tr_list_file=tr.list --cv_list_file=cv.list \\
@@ -56,6 +63,10 @@ ROADMAP.md item.
     python -m rsrgan_tpu_torch.cli.train --trainer=dnn --g_type=dnn \\
         --left_context=5 --right_context=5 --batch_size=256 \\
         --tr_list_file=tr.list --cv_list_file=cv.list --save_dir=exp/dnn
+    python -m rsrgan_tpu_torch.cli.train --trainer=segan --g_type=ae \\
+        --left_context=3 --right_context=3 --batch_size=256 \\
+        --disc_updates=1 --gen_updates=1 --tr_list_file=tr.list \\
+        --cv_list_file=cv.list --save_dir=exp/segan
     python -m rsrgan_tpu_torch.cli.train --decode --trainer=gan_rnn \\
         --g_type=res_lstm_l --data_dir=DATA --test_list_file=test.list \\
         --save_dir=exp/gan_rnn --decode_batch_size=16
@@ -88,9 +99,13 @@ from rsrgan_tpu_torch.data.device_feed import (DeviceFeed,
                                                RotatingDeviceFeed,
                                                table_bytes)
 from rsrgan_tpu_torch.models import (get_discriminator, get_generator,
-                                     load_batch_stats, load_flax_params)
+                                     load_collections, load_flax_params)
+from rsrgan_tpu_torch.models.segan import (SeganAEGenerator,
+                                           SeganDiscriminator,
+                                           SeganWaveGenerator)
 from rsrgan_tpu_torch.training import (GanTrainer, ImprovementTracker,
-                                       MseTrainer, exponential_decay,
+                                       MseTrainer, SeganTrainer,
+                                       exponential_decay,
                                        load_checkpoint, load_generator_state,
                                        load_newest_state,
                                        periodic_snapshot_path,
@@ -102,6 +117,8 @@ from rsrgan_tpu_torch.training.tensorboard import EventFileWriter
 GAN_METRICS = ("d_rl_loss", "d_fk_loss", "d_loss", "g_adv_loss",
                "g_mse_loss", "g_l2_loss", "g_loss")
 MSE_METRICS = ("g_mse_loss", "g_l2_loss", "g_loss")
+SEGAN_METRICS = ("d_rl_loss", "d_fk_loss", "d_loss", "g_adv_loss",
+                 "g_l1_loss", "g_loss")
 SEQUENCE_TRAINERS = ("gan_rnn", "rnn")
 
 _ROADMAP = "see ROADMAP.md, Queue 1"
@@ -155,10 +172,6 @@ def validate_checkpoint_compat(args, name: str) -> None:
 
 
 def run_decode(args) -> int:
-    if args.trainer == "segan":
-        raise NotImplementedError(
-            f"--decode --trainer=segan is not ported yet; {_ROADMAP}, "
-            "'BNLSTM and SEGAN'")
     if args.num_gpu > 1:
         raise NotImplementedError(
             f"--num_gpu={args.num_gpu} (data-parallel decode) is not ported "
@@ -168,20 +181,23 @@ def run_decode(args) -> int:
     name = model_name(args)
     validate_checkpoint_compat(args, name)
     sequence = args.trainer in SEQUENCE_TRAINERS
-    gen = get_generator(args.g_type, input_dim=args.input_dim,
-                        output_dim=args.output_dim,
-                        left_context=args.left_context,
-                        right_context=args.right_context,
-                        batch_norm=args.batch_norm,
-                        compute_dtype=compute_dtype,
-                        lstm_impl=resolve_lstm_impl(args))
+    if args.trainer == "segan":   # its infer_step: G with z = 0
+        gen = segan_generator(args)
+    else:
+        gen = get_generator(args.g_type, input_dim=args.input_dim,
+                            output_dim=args.output_dim,
+                            left_context=args.left_context,
+                            right_context=args.right_context,
+                            batch_norm=args.batch_norm,
+                            compute_dtype=compute_dtype,
+                            lstm_impl=resolve_lstm_impl(args))
     found = load_generator_state(args.save_dir, name, args.moving_average)
     if found is None:
         log("[!] Load failed. Checkpoint not found. Exit now.")
         return 1
     params, extra = found
     load_flax_params(gen, params)
-    load_batch_stats(gen, extra["batch_stats"] if extra else None)
+    load_collections(gen, extra)
     gen = gen.to(device).eval()
     log("[*] Load SUCCESS")
 
@@ -375,17 +391,48 @@ def restore_state(args, name: str, state) -> Tuple[Optional[str], str]:
     return load_checkpoint(args.save_dir, name, state), "checkpoint"
 
 
+def spliced_width(args) -> int:
+    """One spliced input row: ``--input_dim`` times the context's frames."""
+    return args.input_dim * (args.left_context + 1 + args.right_context)
+
+
+def segan_depths(args) -> Tuple[int, ...]:
+    """--g_enc_depths: G's encoder depths, and D's."""
+    return tuple(int(d) for d in args.g_enc_depths.split(","))
+
+
+def segan_generator(args, generator: Optional[torch.Generator] = None):
+    """SEGAN's G from the flags, as the JAX CLI's ``build_trainer`` builds
+    it: ``--g_type`` ae, dnn or lstm (run_segan.sh: ae) the auto-encoder
+    with ``--g_enc_depths``, ``--g_nl``, ``--bias_deconv`` and
+    ``--bias_downconv``; any other the WaveNet-style G."""
+    if args.g_type in ("ae", "dnn", "lstm"):
+        return SeganAEGenerator(
+            spliced_width(args), args.output_dim,
+            enc_depths=segan_depths(args), do_prelu=args.g_nl == "prelu",
+            bias_deconv=args.bias_deconv, bias_downconv=args.bias_downconv,
+            generator=generator)
+    return SeganWaveGenerator(spliced_width(args), args.output_dim,
+                              generator=generator)
+
+
 def build_trainer(args, device, compute_dtype):
     """The trainer of ``--trainer`` (the JAX CLI's ``build_trainer``), its
     nets on ``device``: the LSGANs (``gan_rnn``: SGD for D, each tensor
     clipped to 15; ``gan_dnn``: frame mode, Adam for both, no clipping, D
-    conditioned) or the MSE trainers (``rnn``: clipped to 15; ``dnn``:
-    frame mode, no clipping). Weights are drawn from ``--seed``."""
-    if args.trainer == "segan":
-        raise NotImplementedError(
-            f"--trainer=segan is not ported yet; {_ROADMAP}, "
-            "'BNLSTM and SEGAN'")
+    conditioned), the MSE trainers (``rnn``: clipped to 15; ``dnn``:
+    frame mode, no clipping) or SEGAN (RMSProp for both, no clipping; D
+    sees the spliced input beside its target, ``--bias_d_conv``). Weights
+    are drawn from ``--seed``."""
     gen = torch.Generator().manual_seed(args.seed)
+    if args.trainer == "segan":
+        g = segan_generator(args, gen)
+        d = SeganDiscriminator(spliced_width(args) + args.output_dim,
+                               num_fmaps=segan_depths(args),
+                               bias_conv=args.bias_d_conv, generator=gen)
+        return SeganTrainer(g.to(device), d.to(device),
+                            disc_updates=args.disc_updates,
+                            gen_updates=args.gen_updates)
     impl = resolve_lstm_impl(args)
     # --keep_prob drops out in G and in D, as the JAX CLI passes it to both
     g = get_generator(args.g_type, input_dim=args.input_dim,
@@ -570,6 +617,7 @@ def make_hparams(args) -> Dict[str, float]:
     CLI's ``make_hparams`` on one device)."""
     return {"g_lr": args.g_learning_rate, "d_lr": args.d_learning_rate,
             "mse_lambda": args.init_mse_weight,
+            "l1_lambda": args.init_l1_weight,
             "disc_noise_std": args.init_disc_noise_std,
             "d_real": 1.0, "d_fake": 0.0}
 
@@ -847,8 +895,8 @@ def run_sequence_training(args) -> int:
 
 def run_frame_training(args) -> int:
     """The frame loop of the JAX CLI (``run_frame_training``) for
-    --trainer=dnn and --trainer=gan_dnn, in f32: shuffled frame batches
-    through a prefetch thread, a CV pass before the first epoch, then per
+    --trainer=dnn, --trainer=gan_dnn and --trainer=segan, in f32:
+    shuffled frame batches through a prefetch thread, a CV pass before the first epoch, then per
     epoch the train pass, the CV pass, and an accept (checkpoint) or a
     reject, which reloads the last checkpoint into the whole state
     (params, optimizer moments, EMA, batch statistics, step) and drops
@@ -856,7 +904,11 @@ def run_frame_training(args) -> int:
     learning rate when the relative CV improvement falls below
     --start_decay_impr from epoch --keep_lr on; below --end_decay_impr the
     run stops, once --min_epoches have run. As in JAX, the frame GAN's
-    steps keep the initial hp and only its log shows the staged rate."""
+    and SEGAN's steps keep the initial hp and only the log shows the
+    staged rate. SEGAN's state starts from the first train batch (D's VBN
+    statistics); its steps draw z and D's noise from a generator seeded
+    with --seed + 1, and each CV batch from one seeded with 0, as the JAX
+    loop gives every CV batch ``PRNGKey(0)``."""
     if args.num_gpu > 1:
         raise NotImplementedError(
             f"--num_gpu={args.num_gpu} (data-parallel training) is not "
@@ -864,7 +916,9 @@ def run_frame_training(args) -> int:
     device = resolve_device(args.device)
     trainer = build_trainer(args, device, torch.float32)
     is_gan = args.trainer == "gan_dnn"
-    metric_keys = GAN_METRICS if is_gan else MSE_METRICS
+    is_segan = args.trainer == "segan"
+    metric_keys = (SEGAN_METRICS if is_segan
+                   else GAN_METRICS if is_gan else MSE_METRICS)
     name = model_name(args)
     left, right = args.left_context, args.right_context
 
@@ -877,11 +931,15 @@ def run_frame_training(args) -> int:
     log(f"LOG: #train_batch = {tr_batches.num_batches()}, "
         f"#valid_batch = {cv_batches.num_batches()}")
     # the JAX CLI draws its init example from the train batcher, which
-    # takes the first permutation; the port needs no example but takes it
-    # too, so that its epochs see the JAX permutations
-    next(tr_batches.iter_index_batches(), None)
+    # takes the first permutation; the port takes it too, so that its
+    # epochs see the JAX permutations (SEGAN's init needs the example)
+    first = next(tr_batches.iter_index_batches(), None)
 
-    state = trainer.init_state()
+    if is_segan:
+        state = trainer.init_state(torch.from_numpy(
+            tr_batches._make_batch(first)[0]).to(device))
+    else:
+        state = trainer.init_state()
     restored, restore_src = restore_state(args, name, state)
     log(f"[*] Load SUCCESS ({restore_src})" if restored
         else "[!] Begin a new model.")
@@ -901,7 +959,11 @@ def run_frame_training(args) -> int:
     def eval_epoch():
         accum = []
         for x, y in cv_batches:
-            if is_gan:
+            if is_segan:
+                cv_rand = torch.Generator(device=device).manual_seed(0)
+                accum.append(trainer.eval_step(state, *on_device(x, y), hp,
+                                               cv_rand))
+            elif is_gan:
                 accum.append(trainer.eval_step(state, *on_device(x, y),
                                                None, hp))
             else:
@@ -916,6 +978,7 @@ def run_frame_training(args) -> int:
     log(f"CROSSVAL.LOSS PRERUN: {_fmt(cv_m, metric_keys)}")
     g_loss_prev = cv_m["g_loss"]
     decay_steps = 1
+    rand = torch.Generator(device=device).manual_seed(args.seed + 1)
 
     for epoch in range(args.max_epoches):
         if epoch == 1:
@@ -924,7 +987,9 @@ def run_frame_training(args) -> int:
         tr_accum = []
         for x, y in ThreadedPrefetcher(iter(tr_batches), 32):
             xy = on_device(x, y)
-            if is_gan:
+            if is_segan:
+                tr_accum.append(trainer.train_step(state, *xy, hp, rand))
+            elif is_gan:
                 tr_accum.append(trainer.train_step(state, *xy, None, hp))
             else:
                 tr_accum.append(trainer.train_step(state, *xy, None, g_lr))
@@ -1126,7 +1191,7 @@ def main(argv=None) -> int:
         return run_decode(args)
     if args.trainer in SEQUENCE_TRAINERS:
         return run_sequence_training(args)
-    return run_frame_training(args)   # dnn, gan_dnn (segan raises)
+    return run_frame_training(args)   # dnn, gan_dnn, segan
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Model registry of the port (``rsrgan_tpu/models/__init__.py``).
 
-Generators: the sequence models ``lstm`` and the residual-LSTM family,
-and the frame models ``dnn``, ``rced`` and ``cnn``; ``bnlstm`` raises
-``NotImplementedError`` naming its ROADMAP.md item. Discriminators: the
-sequence LSTM-D and the frame DNN-D. ``models/bridge.py`` carries flax
-trees (params and ``batch_stats``) in and out.
+Generators: the sequence models ``lstm``, ``bnlstm`` and the
+residual-LSTM family, and the frame models ``dnn``, ``rced`` and ``cnn``.
+Discriminators: the sequence LSTM-D and the frame DNN-D. SEGAN's nets
+(``models/segan.py``) are built by the CLI from its own flags, as in JAX.
+``models/bridge.py`` carries flax trees (params and the mutable
+collections) in and out.
 """
 
 from __future__ import annotations
@@ -13,15 +14,18 @@ from typing import Optional
 
 import torch
 
-from rsrgan_tpu_torch.models.bridge import (batch_stats_tree, flatten_tree,
+from rsrgan_tpu_torch.models.bridge import (batch_stats_tree,
+                                            collections_tree, flatten_tree,
                                             load_batch_stats,
+                                            load_collections,
                                             load_flax_params, module_tree,
                                             unflatten_tree)
 from rsrgan_tpu_torch.models.discriminators import (DnnDiscriminator,
                                                     LstmDiscriminator)
 from rsrgan_tpu_torch.models.feedforward import (CnnGenerator, DnnGenerator,
                                                  RcedGenerator)
-from rsrgan_tpu_torch.models.recurrent import (LstmGenerator,
+from rsrgan_tpu_torch.models.recurrent import (BnLstmGenerator,
+                                               LstmGenerator,
                                                ResLstmGenerator)
 
 SEQUENCE_G_TYPES = ("lstm", "bnlstm", "res_lstm_base", "res_lstm_i",
@@ -38,13 +42,18 @@ def get_generator(g_type: str, *, input_dim: int, output_dim: int,
     """``input_dim`` is one frame's width; a model sees ``input_dim *
     (left_context + 1 + right_context)`` (spliced frames). ``batch_norm``
     reaches ``dnn`` and ``rced`` (as in JAX, ``cnn`` and the sequence
-    models have none); the frame models run in f32."""
+    models have none); the frame models run in f32. ``bnlstm`` has no
+    dropout and runs its eager cell whatever ``lstm_impl`` says."""
     splice = left_context + 1 + right_context
     width = input_dim * splice
     if g_type == "lstm":
         return LstmGenerator(width, output_dim, keep_prob=keep_prob,
                              compute_dtype=compute_dtype,
                              lstm_impl=lstm_impl, generator=generator)
+    if g_type == "bnlstm":
+        return BnLstmGenerator(width, output_dim,
+                               compute_dtype=compute_dtype,
+                               generator=generator)
     if g_type in ("res_lstm_base", "res_lstm_i", "res_lstm_l"):
         return ResLstmGenerator(width, output_dim,
                                 variant=g_type.rsplit("_", 1)[-1],
@@ -60,10 +69,6 @@ def get_generator(g_type: str, *, input_dim: int, output_dim: int,
     if g_type == "cnn":
         return CnnGenerator(input_dim, splice, output_dim,
                             generator=generator)
-    if g_type == "bnlstm":
-        raise NotImplementedError(
-            "g_type bnlstm is not ported yet; see ROADMAP.md, Queue 1, "
-            "'BNLSTM and SEGAN'")
     raise ValueError(f"Unrecognized G type {g_type}")
 
 

@@ -3,10 +3,14 @@
 A module's parameter names are the flax paths joined by dots
 (``Dense_0.kernel``, ``lstm_cell_1.proj_kernel``, ``Conv_3.kernel``,
 ``BatchNorm_0.scale``) and its layouts are flax's, so a flax ``params``
-tree copies in by name and back out as the same tree. The running
-statistics of ``BatchNorm`` layers are buffers (``BatchNorm_k.mean``,
-``.var``): flax keeps them apart in the ``batch_stats`` collection, and so
-do ``batch_stats_tree`` and ``load_batch_stats``.
+tree copies in by name and back out as the same tree. Statistics that
+flax keeps in mutable collections are buffers of the modules that declare
+them (``flax_collection``, ``flax_stats``): ``batch_stats`` for
+``BatchNorm`` (``BatchNorm_k.mean``, ``.var``) and ``BnLstmCell``
+(``cell_k.input_mean``, ...), ``vbn_stats`` for ``VirtualBatchNorm``
+(``d_vbn_k.ref_mean``, ``.ref_meansq``). ``collections_tree`` and
+``load_collections`` carry them as flax's ``{collection: tree}``;
+``batch_stats_tree`` and ``load_batch_stats`` carry one collection.
 """
 
 from __future__ import annotations
@@ -16,8 +20,6 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
-
-from rsrgan_tpu_torch.ops.modules import BatchNorm
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -50,9 +52,16 @@ def unflatten_tree(flat: Mapping[str, object]) -> dict:
     return sort(tree)
 
 
+def snapshot(t: torch.Tensor) -> np.ndarray:
+    """An f32 numpy copy of a tensor: never a view of it, so a tree of
+    them keeps its values while a CPU module trains on in place."""
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
 def module_tree(module: nn.Module) -> dict:
-    """The module's parameters as a JAX-layout tree of f32 numpy arrays."""
-    return unflatten_tree({name: p.detach().float().cpu().numpy()
+    """The module's parameters as a JAX-layout tree of f32 numpy arrays
+    (copies)."""
+    return unflatten_tree({name: snapshot(p)
                            for name, p in module.named_parameters()})
 
 
@@ -80,36 +89,25 @@ def load_flax_params(module: nn.Module, tree: Mapping) -> None:
             param.copy_(torch.from_numpy(value).to(param.device))
 
 
-def _batch_stats(module: nn.Module) -> Dict[str, torch.Tensor]:
-    """The running statistics of the module's BatchNorm layers by dotted
-    name (``BatchNorm_0.mean``, ``BatchNorm_0.var``, ...)."""
-    out = {}
+def _collections(module: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
+    """collection -> {dotted buffer name: buffer} over the module's
+    submodules that declare a flax collection."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
     for prefix, sub in module.named_modules():
-        if isinstance(sub, BatchNorm):
-            for leaf in ("mean", "var"):
-                out[f"{prefix}.{leaf}" if prefix else leaf] = \
-                    getattr(sub, leaf)
+        collection = getattr(sub, "flax_collection", None)
+        if collection is None:
+            continue
+        for leaf in sub.flax_stats:
+            out.setdefault(collection, {})[
+                f"{prefix}.{leaf}" if prefix else leaf] = getattr(sub, leaf)
     return out
 
 
-def batch_stats_tree(module: nn.Module) -> Optional[dict]:
-    """The module's ``batch_stats`` collection as a flax tree of f32 numpy
-    arrays, or None for a module without BatchNorm layers."""
-    stats = _batch_stats(module)
-    if not stats:
-        return None
-    return unflatten_tree({k: v.detach().float().cpu().numpy()
-                           for k, v in stats.items()})
-
-
-def load_batch_stats(module: nn.Module, tree: Optional[Mapping]) -> None:
-    """Copy a flax ``batch_stats`` tree into the module's BatchNorm
-    buffers by name; the tree must name every buffer and nothing else
-    (None for a module without BatchNorm layers)."""
-    stats = _batch_stats(module)
+def _load(stats: Mapping[str, torch.Tensor], tree: Optional[Mapping],
+          what: str) -> None:
     flat = flatten_tree(tree) if tree is not None else {}
     if sorted(flat) != sorted(stats):
-        raise KeyError(f"batch_stats mismatch: "
+        raise KeyError(f"{what} mismatch: "
                        f"{sorted(set(flat) ^ set(stats))}")
     with torch.no_grad():
         for name, buf in stats.items():
@@ -118,3 +116,41 @@ def load_batch_stats(module: nn.Module, tree: Optional[Mapping]) -> None:
                 raise ValueError(f"{name}: checkpoint shape {value.shape} "
                                  f"!= module shape {tuple(buf.shape)}")
             buf.copy_(torch.from_numpy(value).to(buf.device))
+
+
+def collections_tree(module: nn.Module) -> Optional[dict]:
+    """The module's mutable collections as flax's ``{collection: tree}``
+    of f32 numpy arrays (the JAX ``NetState.extra``), or None for a
+    module without any."""
+    colls = _collections(module)
+    if not colls:
+        return None
+    return {name: unflatten_tree({k: snapshot(v) for k, v in stats.items()})
+            for name, stats in sorted(colls.items())}
+
+
+def load_collections(module: nn.Module, tree: Optional[Mapping]) -> None:
+    """Copy a flax ``{collection: tree}`` (a JAX ``NetState.extra``) into
+    the module's buffers by name; it must name every collection and
+    buffer of the module and nothing else (None for a module without
+    any)."""
+    colls = _collections(module)
+    tree = tree or {}
+    if sorted(tree) != sorted(colls):
+        raise KeyError(f"mutable collections mismatch: checkpoint "
+                       f"{sorted(tree)}, module {sorted(colls)}")
+    for name, stats in colls.items():
+        _load(stats, tree[name], name)
+
+
+def batch_stats_tree(module: nn.Module) -> Optional[dict]:
+    """The module's ``batch_stats`` collection as a flax tree of f32 numpy
+    arrays, or None for a module without BatchNorm or BnLstm layers."""
+    return (collections_tree(module) or {}).get("batch_stats")
+
+
+def load_batch_stats(module: nn.Module, tree: Optional[Mapping]) -> None:
+    """Copy a flax ``batch_stats`` tree into the module's buffers by name;
+    the tree must name every buffer and nothing else (None for a module
+    without any)."""
+    _load(_collections(module).get("batch_stats", {}), tree, "batch_stats")

@@ -1,5 +1,6 @@
 """The recurrent generators (``rsrgan_tpu/models/recurrent.py``
-``LstmGenerator`` and the ``ResLstmGenerator`` family).
+``LstmGenerator``, ``BnLstmGenerator`` and the ``ResLstmGenerator``
+family).
 
 Parameter names and layouts are the JAX ones (``lstm_cell_{1..4}/{kernel,
 bias,proj_kernel,w_i_diag,w_f_diag,w_o_diag}``, ``forward_out/{kernel,
@@ -8,7 +9,9 @@ bias}``; ``Dense_0``, ``StackedLstm_0/cell_{0,1,2}``, ``Dense_1``;
 (``models/bridge.py``) copies a flax checkpoint's G tree in by name. The
 JAX package needs a parameter-only ``_CellParams`` twin to give the
 wavefront path the scan path's tree; here ``LstmCellP`` holds the
-parameters and serves both paths.
+parameters and serves both paths. ``BnLstmGenerator``'s cells are
+``cell_{0,1,2}`` with their own names (``input_kernel``,
+``state_kernel``, ...) and ``batch_stats`` buffers (``ops/bnlstm.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch.ops.bnlstm import BnLstmCell
 from rsrgan_tpu_torch.ops.common import MaskSource, dropout, leakyrelu
 from rsrgan_tpu_torch.ops.lstm import LstmCellP, StackedLstm
 from rsrgan_tpu_torch.ops.modules import Dense
@@ -157,4 +161,45 @@ class LstmGenerator(nn.Module):
     def _forward(self, inputs, lengths, train, masks) -> torch.Tensor:
         h = leakyrelu(self.Dense_0(inputs))
         h = self.StackedLstm_0(h, lengths, train, masks=masks)
+        return self.Dense_1(h)
+
+
+class BnLstmGenerator(nn.Module):
+    """``--g_type=bnlstm`` (``rsrgan_tpu/models/recurrent.py``
+    ``BnLstmGenerator``): Dense to ``num_projection`` and relu, then
+    ``num_layers`` x ``BnLstmCell(cell_size, proj num_projection)``, then a
+    linear Dense out. No hand kernel computes its cell (batch norm inside
+    the recurrence), so every ``lstm_impl`` runs the eager cell. A
+    train-mode forward folds each cell's moving statistics into its
+    buffers; eval mode normalises by them. It has no dropout."""
+
+    def __init__(self, input_dim: int, output_dim: int,
+                 cell_size: int = 760, num_projection: int = 280,
+                 num_layers: int = 3,
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.Dense_0 = Dense(input_dim, num_projection, generator)
+        for k in range(num_layers):
+            self.add_module(f"cell_{k}", BnLstmCell(
+                num_projection, cell_size, num_projection,
+                compute_dtype=compute_dtype, generator=generator))
+        self.Dense_1 = Dense(num_projection, output_dim, generator)
+
+    def forward(self, inputs: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None,
+                train: bool = False,
+                masks: Optional[MaskSource] = None) -> torch.Tensor:
+        """[B, T, D] features, [B] lengths -> [B, T, output_dim];
+        ``masks`` is accepted for the trainers' call and unused."""
+        if not train:
+            with torch.no_grad():
+                return self._forward(inputs, lengths, False)
+        return self._forward(inputs, lengths, True)
+
+    def _forward(self, inputs, lengths, train) -> torch.Tensor:
+        h = torch.relu(self.Dense_0(inputs))
+        for k in range(self.num_layers):
+            h = getattr(self, f"cell_{k}")(h, lengths, train)
         return self.Dense_1(h)

@@ -1,7 +1,7 @@
 """Training layer of the port: checkpoints and periodic snapshots (flax
 msgpack, the whole train state), losses, optimizers and EMA, schedules,
-TensorBoard event files, the LSGAN trainer (sequence and frame) and the
-MSE trainer."""
+TensorBoard event files, the LSGAN trainer (sequence and frame), the
+MSE trainer and the SEGAN trainer."""
 
 from rsrgan_tpu_torch.training.checkpoints import (latest_checkpoint,
                                                    load_checkpoint,
@@ -23,4 +23,5 @@ from rsrgan_tpu_torch.training.mse import MseState, MseTrainer
 from rsrgan_tpu_torch.training.schedules import (ImprovementTracker,
                                                  exponential_decay,
                                                  staged_decay)
+from rsrgan_tpu_torch.training.segan import SeganTrainer
 from rsrgan_tpu_torch.training.state import NetState, make_optimizer

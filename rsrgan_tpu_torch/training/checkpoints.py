@@ -373,9 +373,8 @@ def load_generator_params(save_dir: str, name: str,
 # ---------------------------------------------------------------------------
 
 def _np_tree(flat) -> dict:
-    from rsrgan_tpu_torch.models import unflatten_tree
-    return unflatten_tree({k: v.detach().float().cpu().numpy()
-                           for k, v in flat.items()})
+    from rsrgan_tpu_torch.models.bridge import snapshot, unflatten_tree
+    return unflatten_tree({k: snapshot(v) for k, v in flat.items()})
 
 
 def _opt_tree(tx, opt_state: dict) -> dict:
@@ -400,7 +399,8 @@ def _nets(state) -> Tuple[str, ...]:
 def state_tree(state) -> dict:
     """A ``GanState`` or ``MseState`` as the tree flax's ``to_bytes``
     writes for the JAX state after a train step (every inner dict's keys
-    sorted; ``extra`` None or ``{"batch_stats": ...}``)."""
+    sorted; ``extra`` None or ``{collection: ...}``), of copies: later
+    steps leave it as it is."""
     from rsrgan_tpu_torch.models import module_tree
 
     def net(ns):

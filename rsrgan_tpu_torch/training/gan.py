@@ -26,8 +26,9 @@ generators), as JAX draws G's from their own stream and D's from
 ``frame_mode`` is the frame LSGAN (``--trainer=gan_dnn``): G takes
 spliced frames without lengths, D (DNN-D) takes ``[B, width]`` frames
 without noise or lengths; the CLI builds it with Adam for both nets, no
-clipping, and D always conditioned. A G with BatchNorm layers is refused:
-the JAX ``GanTrainer`` keeps no ``batch_stats`` and cannot run one.
+clipping, and D always conditioned. A G with ``batch_stats`` (BatchNorm
+layers, or bnlstm's cells) is refused: the JAX ``GanTrainer`` keeps none
+and cannot run one.
 
 ``train_step_gathered`` and ``eval_step_gathered`` first assemble their
 batch on the device from resident tables and a ``[B]`` plan
@@ -87,11 +88,12 @@ class GanTrainer:
                  frame_mode: bool = False):
         if batch_stats_tree(generator) is not None:
             raise ValueError(
-                "GanTrainer cannot train a generator with BatchNorm layers "
+                "GanTrainer cannot train a generator with batch_stats "
                 "(--trainer=gan_dnn --batch_norm with --g_type=dnn or "
-                "rced): the JAX GanTrainer keeps no batch_stats, so the "
-                "JAX package fails on the first step with "
-                "ScopeCollectionNotFound; train without --batch_norm")
+                "rced, or --trainer=gan_rnn --g_type=bnlstm): the JAX "
+                "GanTrainer keeps no batch_stats, so the JAX package fails "
+                "on the first step with ScopeCollectionNotFound; train "
+                "without --batch_norm, or bnlstm with --trainer=rnn")
         self.generator = generator
         self.discriminator = discriminator
         self.output_dim = output_dim

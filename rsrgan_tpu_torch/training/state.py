@@ -11,9 +11,10 @@ optimizer state keeps optax's layout, so that a checkpoint carries it
 both ways: ``{"count": int32 [], "mu": {...}, "nu": {...}}`` for Adam,
 ``{"nu": {...}}`` for RMSProp, nothing for SGD; trees are dicts keyed by
 the parameter's dotted name. Updates are in place. A module's mutable
-collections (the BatchNorm running statistics, flax's ``batch_stats``)
-are its buffers: ``NetState.extra`` reads them as the JAX ``NetState.extra``
-tree, outside the EMA and the optimizer.
+collections (flax's ``batch_stats`` of BatchNorm and BnLstm layers, the
+``vbn_stats`` of virtual batch norm) are its buffers: ``NetState.extra``
+reads them as the JAX ``NetState.extra`` tree, outside the EMA and the
+optimizer.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from rsrgan_tpu_torch.models.bridge import batch_stats_tree, load_batch_stats
+from rsrgan_tpu_torch.models.bridge import (collections_tree,
+                                            load_collections)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -130,20 +132,17 @@ class NetState:
         return dict(self.module.named_parameters())
 
     def extra(self) -> Optional[dict]:
-        """The JAX ``NetState.extra``: ``{"batch_stats": tree}`` of numpy
-        arrays for a module with BatchNorm layers, else None. A train-mode
-        forward updates it in place; the EMA and the optimizer never see
-        it."""
-        stats = batch_stats_tree(self.module)
-        return None if stats is None else {"batch_stats": stats}
+        """The JAX ``NetState.extra``: ``{collection: tree}`` of numpy
+        arrays (``batch_stats``, ``vbn_stats``) for a module with mutable
+        collections, else None. A train-mode forward updates
+        ``batch_stats`` in place; the EMA and the optimizer never see
+        them."""
+        return collections_tree(self.module)
 
     def load_extra(self, extra: Optional[dict]) -> None:
         """Copy a JAX ``NetState.extra`` tree into the module's buffers;
         None for a module without any."""
-        if extra is not None and set(extra) != {"batch_stats"}:
-            raise KeyError(f"unknown mutable collections {sorted(extra)}")
-        load_batch_stats(self.module,
-                         None if extra is None else extra["batch_stats"])
+        load_collections(self.module, extra)
 
     @torch.no_grad()
     def apply_gradients(self, grads: Tree, lr: float,

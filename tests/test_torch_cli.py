@@ -109,8 +109,8 @@ def test_cuda_device_without_gpu_raises(corpus, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--trainer=segan"], "BNLSTM and SEGAN"),
-    (["--decode", "--trainer=segan"], "BNLSTM and SEGAN"),
+    (["--trainer=segan", "--num_gpu=2"], "Parallel"),
+    (["--decode", "--trainer=segan", "--num_gpu=2"], "Parallel"),
     (["--decode", "--num_gpu=2"], "Parallel"),
 ])
 def test_unported_paths_name_their_roadmap_item(corpus, flags, match):

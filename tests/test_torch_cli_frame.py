@@ -21,7 +21,8 @@ corpus, and must take the same decisions epoch by epoch.
   the port, the port's by the JAX CLI, each against the other package's
   decode of the same checkpoint, to 1e-5.
 * The CLI turns TF32 off itself; ``--trainer=gan_dnn --batch_norm``
-  (which the JAX package cannot run) and ``--trainer=segan`` raise.
+  (which the JAX package cannot run) and ``--trainer=segan --num_gpu=2``
+  raise.
 """
 
 import json
@@ -324,7 +325,7 @@ def test_cli_turns_tf32_off(corpus, trained, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,error,match", [
     (["--trainer=gan_dnn", "--batch_norm=true"], ValueError,
      "batch_stats"),
-    (["--trainer=segan"], NotImplementedError, "BNLSTM and SEGAN"),
+    (["--trainer=segan", "--num_gpu=2"], NotImplementedError, "Parallel"),
 ])
 def test_unrunnable_frame_flags_raise(corpus, tmp_path, extra, error,
                                       match):

@@ -87,12 +87,6 @@ def test_load_flax_params_rejects_mismatch(rng):
         load_flax_params(wider, params)
 
 
-@pytest.mark.parametrize("g_type", ["bnlstm"])
-def test_unported_generators_name_their_roadmap_item(g_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_generator(g_type, input_dim=D, output_dim=OUT)
-
-
 def jax_lstm_generator(rng, P_=7, layers=3):
     gen = JaxLstmGen(output_dim=OUT, cell_size=U, num_projection=P_,
                      num_layers=layers, lstm_impl="scan")
