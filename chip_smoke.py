@@ -122,7 +122,24 @@ JSON line each; any failure ends the run non-zero:
    TF32 off after it; ``--decode`` from its checkpoint; ms per
    iteration, frames/s and the busy share of 3 profiled steps; then the
    WaveNet-style G's step (64 rows) against the CPU.
-10. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
+10. parallel — data parallelism (rsrgan_tpu_torch/parallel) from the
+   prepare phase's stores: whether MPS is on (nvidia-smi -q); (a) the
+   flagship step (res_lstm_l G and LSTM-D at full width, f32, on the
+   kernels) on two ranks sharing the card over gloo, each on its 8 rows
+   of a 16-row batch, against the one-process step at 16 rows on the
+   card (the 3 updates' gradients and D's post-step params,
+   GRAD_TOL), each rank's launches on the local-row routes (K2 at 8 and
+   16 rows where the one process takes K3 at 32: PAR_RANK_LAUNCHES), ms
+   per step of each rank and its collectives' share (two ranks
+   time-slicing one card, not scaling); (b) recipes/run_gan_rnn.sh's
+   flags at --batch_size=8, bf16, one epoch, as two processes
+   (--coordinator_address): only rank 0 writes (one checkpoint, one
+   metrics row and events file per split), finite losses, the LOG line
+   names gloo, and --decode reads the checkpoint back; (c) its f32
+   decode by two processes against the one-process decode, max abs <=
+   DECODE_TOL_F32; (d) with two or more cards, (a) over NCCL and a
+   --num_gpu=2 epoch, else a line saying why not (not a pass).
+11. feed — a seeded store of ~1.7 M frames (~2 GB of f32 tables): the
    upload of its f32 and bf16 tables (GB/s over the f32 bytes that cross
    the link, twice each, and the reference corpus's ~36 M frames
    extrapolated from it); the gather of one batch at B=16 and 32,
@@ -132,12 +149,12 @@ JSON line each; any failure ends the run non-zero:
    prefetch on, block 1, two passes, each residency's gathers queued
    behind a device sleep), every gathered batch bit-equal to the host
    batch of its shard's StoreView batcher.
-11. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
+12. decode — a seeded full-width res_lstm_l checkpoint, a 32-utterance
    test store, ``cli.train.main(["--decode", ...])`` at
    --decode_batch_size=16 on the default bf16 kernel path (the decode
    path: its launch count is reset before and read after), and f32 runs
    of the kernel and of --lstm_impl=scan held against each other.
-12. chain — the recipes' chains through the port's CLIs. First the
+13. chain — the recipes' chains through the port's CLIs. First the
    features on the card: ``import scipy`` and its version; the waves of
    tests/fixtures/oracle_feats.npz and dsp_golden.npz through
    ``cli/extract.py``'s engine on the card at dither 0, gated at the
@@ -159,7 +176,7 @@ JSON line each; any failure ends the run non-zero:
    chains launched it at (T=300, ragged rows) against its twin, f32 and
    bf16, at the kernel phases' tolerances.
 
-13. serve — the streaming front-end (serving/, cli/serve.py) at
+14. serve — the streaming front-end (serving/, cli/serve.py) at
    res_lstm_l's full width, f32, the eager cell (no hand kernel: every
    launch count is 0 while streaming). Feature mode: ``cli.serve.main``
    over the decode phase's 32 utterances at --chunk_frames=50, from a
@@ -177,7 +194,7 @@ JSON line each; any failure ends the run non-zero:
    float waves clipped to 16 bits), the library's float waves pooled
    against single within 1e-5 of the peak and against the offline chain
    (f32 --decode, then resynthesize) above 35 dB SNR.
-14. proxy — ``tools.proxy_asr.main`` on the card over
+15. proxy — ``tools.proxy_asr.main`` on the card over
    tests/test_proxy.py's separable corpus and its noisy twin, with that
    test's gates (clean FER < 0.25, noisy FER > clean + 0.1, SER <= FER +
    0.35), TF32 off after, its train frames/s, no hand kernel; then one
@@ -2269,6 +2286,473 @@ def phase_segan(work: str, prepared: dict) -> dict:
     return out
 
 
+# The parallel phase: data parallelism (rsrgan_tpu_torch/parallel) on the
+# card. run_gan_rnn.sh trains at --batch_size=8 a rank (--num_gpu=4); two
+# ranks here share the first card over gloo (NCCL refuses two ranks on one
+# device), each a process with its own CUDA context, time-slicing the
+# card. PAR_TIMED_STEPS library steps are timed after the checked one.
+# Every kernel is then held against its twin at each shape a rank
+# launched it at (PAR_KERNELS; shape_key's sizes).
+PAR_B = 8
+PAR_RANKS = 2
+PAR_TIMED_STEPS = 4
+# run_gan_rnn.sh's training flags, less --num_gpu=4, the data and the
+# epochs (the graph-fed loop: D and G steps on successive batches)
+GAN_RNN_RECIPE = ["--trainer=gan_rnn", "--same_batch=false",
+                  "--g_type=res_lstm_l", f"--batch_size={PAR_B}",
+                  "--g_learning_rate=0.00008", "--d_learning_rate=0.0008",
+                  "--disc_updates=1", "--gen_updates=2",
+                  "--batch_norm=False", "--l2_scale=1e-7",
+                  "--init_mse_weight=10.0", f"--input_dim={P}",
+                  f"--output_dim={OUT}", "--left_context=0",
+                  "--right_context=0", "--end_improve=0.001",
+                  "--init_disc_noise_std=0.05"]
+# Each rank's launches in one flagship step at PAR_B rows (G) and 2 PAR_B
+# rows (D's step): K4 train for the shared G forward and the second G
+# step's; K1 for D's 2 layers in the D step and in each G step's D head;
+# K2 for D's 2 layers in each of the 3 updates and G's 4 layers in each
+# G step (16 rows is below K3's 32); no K3.
+PAR_RANK_LAUNCHES = {"wavefront_fwd_train": 2, "lstm_fwd": 6,
+                     "lstm_bwd": 14, "lstm_bwd_acc": 0}
+# One process at 2 PAR_B: the D step's backward (32 rows) on K3 instead.
+PAR_ONE_LAUNCHES = {"wavefront_fwd_train": 2, "lstm_fwd": 6,
+                    "lstm_bwd": 12, "lstm_bwd_acc": 2}
+PROCESS_TIMEOUT = 300
+PAR_KERNELS = ("wavefront_fwd_train", "wavefront_fwd", "lstm_fwd",
+               "lstm_bwd")
+# a process of the training CLI with its launches counted
+COUNTED_CLI = ("import sys, chip_smoke; "
+               "sys.exit(chip_smoke.counted_train_cli(sys.argv[1], "
+               "sys.argv[2:]))")
+
+
+def flagship_step(x, y, lens, timed_steps: int) -> dict:
+    """The flagship step (res_lstm_l G, LSTM-D, full width, f32, noise std
+    0) on the kernels, on this process's rows of (x, y, lens), in its data
+    world: seeded weights replicated from rank 0; the gradients of the 3
+    updates and the params after the step (on the host), the step's
+    launches in total and by shape (counts set to 0 just before it), then
+    ``timed_steps`` more steps timed with the share of wall time spent
+    inside collectives."""
+    import torch
+    from rsrgan_tpu_torch.models import get_discriminator, get_generator
+    from rsrgan_tpu_torch.parallel import (current_world, replicate,
+                                           shard_batch)
+    from rsrgan_tpu_torch.training import GanTrainer, default_hparams
+    world = current_world()
+    device = world.device
+    gen = torch.Generator().manual_seed(21)
+    g = get_generator("res_lstm_l", input_dim=P, output_dim=OUT,
+                      compute_dtype=torch.float32, lstm_impl="wavefront",
+                      generator=gen).to(device)
+    d = get_discriminator("lstm", compute_dtype=torch.float32,
+                          lstm_impl="wavefront", generator=gen).to(device)
+    trainer = GanTrainer(g, d, output_dim=OUT, input_dim=P, l2_scale=1e-5)
+    state = trainer.init_state()
+    for net in (state.g, state.d):
+        replicate(world, net.tensors())
+    x, y, lens = (torch.from_numpy(a).to(device)
+                  for a in shard_batch(world, (x, y, lens)))
+    hp = dict(default_hparams(), disc_noise_std=0.0)
+    counters = chain_counters()
+    trainer.grad_log = []
+    torch.cuda.synchronize(device)
+    reset_counts(counters)
+    trainer.train_step(state, x, y, lens, hp)
+    torch.cuda.synchronize(device)
+    launches = read_counts(counters)
+    out = {"grads": [(tag, {k: v.cpu() for k, v in gr.items()})
+                     for tag, gr in trainer.grad_log],
+           "params": {net: {k: v.detach().cpu() for k, v in
+                            getattr(state, net).params().items()}
+                      for net in ("g", "d")},
+           "launches": {k: launches[k] for k in PAR_RANK_LAUNCHES},
+           "by_shape": by_shape(launches)}
+    trainer.grad_log = None
+    world.timed, world.collective_secs = True, 0.0
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        trainer.train_step(state, x, y, lens, hp)
+    torch.cuda.synchronize(device)
+    secs = time.perf_counter() - t0
+    world.timed = False
+    out["ms_per_step"] = 1e3 * secs / timed_steps
+    out["collective_share"] = world.collective_secs / secs
+    return out
+
+
+def by_shape(counts: dict) -> dict:
+    """The counts by shape of PAR_KERNELS' wrappers."""
+    return {f"{k}_by_shape": counts[f"{k}_by_shape"] for k in PAR_KERNELS}
+
+
+def _parallel_rank(rank: int, world: int, address: str, work: str,
+                   per_card: bool) -> int:
+    """One rank of the parallel phase's library step (a spawned process):
+    its card (``cuda:rank`` with ``per_card``, else the first card, which
+    the ranks share), the world, ``flagship_step`` on its rows; rank 0
+    saves its gradients and params, every rank its launches and times."""
+    import torch
+    from rsrgan_tpu_torch.parallel import initialize, make_world, shutdown
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank if per_card else 0)
+    initialize(address, world, rank, device)
+    try:
+        w = make_world(device)
+        batch = np.load(os.path.join(work, "parallel_batch.npz"))
+        out = flagship_step(batch["x"], batch["y"], batch["lens"],
+                            PAR_TIMED_STEPS)
+        if rank == 0:
+            torch.save({k: out[k] for k in ("grads", "params")},
+                       os.path.join(work, "parallel_rank0.pt"))
+        with open(os.path.join(work, f"parallel_rank{rank}.json"), "w") as f:
+            json.dump({"launches": out["launches"],
+                       "by_shape": out["by_shape"], "backend": w.backend,
+                       "device": str(device),
+                       "ms_per_step": out["ms_per_step"],
+                       "collective_share": out["collective_share"]}, f)
+        return 0
+    finally:
+        shutdown()
+
+
+def parallel_library_step(tr_list: str, work: str, ranks: int,
+                          per_card: bool) -> dict:
+    """(a) The flagship step on ``ranks`` ranks (a card each with
+    ``per_card``, over nccl; else all on the first card, over gloo), each
+    on its PAR_B rows of a ``ranks`` PAR_B batch, against the one-process
+    step on the whole batch on the card: the 3 updates' gradients and D's
+    post-step params gated at GRAD_TOL (max |diff| / max |ref| per
+    tensor), G's post-step params reported only (Adam's first step:
+    update = g / (|g| + eps)); each rank's launches against the
+    local-row routes, and by shape."""
+    import torch
+    from rsrgan_tpu_torch.data import (SequenceBatcher, UtteranceStore,
+                                       read_list_file)
+    from rsrgan_tpu_torch.parallel import launch, make_world
+    work = os.path.join(work, "parallel_nccl" if per_card else "parallel")
+    os.makedirs(work, exist_ok=True)
+    store = UtteranceStore(read_list_file(tr_list))
+    batch = next(iter(SequenceBatcher(store, ranks * PAR_B, seed=1)))
+    np.savez(os.path.join(work, "parallel_batch.npz"), x=batch.inputs,
+             y=batch.labels, lens=batch.lengths)
+    make_world(torch.device("cuda", 0))
+    ref = flagship_step(batch.inputs, batch.labels, batch.lengths,
+                        PAR_TIMED_STEPS)
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    rc = launch(_parallel_rank, ranks, args=(work, per_card),
+                timeout=PROCESS_TIMEOUT)
+    secs = time.monotonic() - t0
+    if rc != 0:
+        raise RuntimeError(f"a rank of the library step exited {rc}")
+    got = torch.load(os.path.join(work, "parallel_rank0.pt"))
+    per_rank = []
+    for r in range(ranks):
+        with open(os.path.join(work, f"parallel_rank{r}.json")) as f:
+            per_rank.append(json.load(f))
+    names = ("d_step", "g_step_1", "g_step_2")
+    grad_errs = {n: max(rel_errs(a[1], b[1]).values())
+                 for n, a, b in zip(names, got["grads"], ref["grads"])}
+    post = {net: max(rel_errs(got["params"][net],
+                              ref["params"][net]).values())
+            for net in ("g", "d")}
+    routes_ok = (ref["launches"] == PAR_ONE_LAUNCHES
+                 and all(r["launches"] == PAR_RANK_LAUNCHES
+                         for r in per_rank))
+    return {"ranks": ranks, "rows_per_rank": PAR_B,
+            "t_pad": int(batch.inputs.shape[1]),
+            "rank0_lengths": [int(n) for n in batch.lengths[:PAR_B]],
+            "backend": per_rank[0]["backend"],
+            "devices": [r["device"] for r in per_rank],
+            "grad_rel_err": grad_errs, "post_step_param_rel_err": post,
+            "tol": GRAD_TOL, "launches_per_rank": [r["launches"]
+                                                   for r in per_rank],
+            "launches_one_process": ref["launches"],
+            "by_shape_per_rank": [r["by_shape"] for r in per_rank],
+            "ms_per_step_ranks": [r["ms_per_step"] for r in per_rank],
+            "collective_share_ranks": [r["collective_share"]
+                                       for r in per_rank],
+            "ms_per_step_one_process": ref["ms_per_step"],
+            "launch_seconds": secs,
+            "ok": (len(grad_errs) == 3
+                   and all(e <= GRAD_TOL for e in grad_errs.values())
+                   and post["d"] <= GRAD_TOL and routes_ok)}
+
+
+def counted_train_cli(counts_path: str, argv: list) -> int:
+    """The training CLI's ``main(argv)`` in this process, every launch
+    count set to 0 just before it and written to ``counts_path`` (JSON)
+    just after: the counts of one rank of a --coordinator_address run."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    counters = chain_counters()
+    reset_counts(counters)
+    rc = train_cli.main(argv)
+    torch.cuda.synchronize()
+    with open(counts_path, "w") as f:
+        json.dump(read_counts(counters), f)
+    return rc
+
+
+def cli_processes(argv_of, count: int, counts_dir=None,
+                  shared_card: bool = True) -> tuple:
+    """``count`` processes of the training CLI with ``argv_of(i)``, from
+    the checkout, each with a time limit, every one ended on the way out:
+    (exit codes, outputs, seconds, each process's launch counts).
+    ``shared_card``: every process sees only the first card, which its
+    ranks then share. With ``counts_dir`` each process runs the CLI
+    through ``counted_train_cli``; without, its counts are None."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    if shared_card:
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES",
+                                              "0").split(",")[0]
+
+    def command(i):
+        if counts_dir is None:
+            return [sys.executable, "-m", "rsrgan_tpu_torch.cli.train",
+                    *argv_of(i)]
+        return [sys.executable, "-c", COUNTED_CLI,
+                os.path.join(counts_dir, f"counts{i}.json"), *argv_of(i)]
+
+    if counts_dir is not None:
+        os.makedirs(counts_dir, exist_ok=True)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        command(i), cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for i in range(count)]
+    try:
+        outs = [p.communicate(timeout=PROCESS_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    counts = None
+    if counts_dir is not None and codes == [0] * count:
+        counts = []
+        for i in range(count):
+            with open(os.path.join(counts_dir, f"counts{i}.json")) as f:
+                counts.append(json.load(f))
+    return codes, outs, time.monotonic() - t0, counts
+
+
+def coordinator_flags(port: int, i: int, count: int = PAR_RANKS) -> list:
+    return [f"--coordinator_address=127.0.0.1:{port}",
+            f"--num_processes={count}", f"--process_id={i}"]
+
+
+def parallel_cli(prepared: dict, work: str) -> dict:
+    """(b) run_gan_rnn.sh's flags at --batch_size=8, bf16, one epoch, as
+    two processes (--coordinator_address) on the first card: both exit 0,
+    the coordinator names the backend (gloo), only it writes (one metrics
+    row per split, one events file per split, one checkpoint), rank 1
+    logs nothing of the loop, the losses are finite, every rank launched
+    K4 train, K1 and K2 and no K3, and ``--decode`` reads the checkpoint
+    back (one process, 16 utterances, finite). (c) The checkpoint decoded
+    in f32 by two processes (each batch's rows padded to even, a block a
+    rank) against the one-process f32 decode: max abs <= DECODE_TOL_F32,
+    every rank on K4's decode mode. Each rank's launches are counted (set
+    to 0 just before its CLI run, read just after)."""
+    import torch
+    from rsrgan_tpu_torch.cli import train as train_cli
+    from rsrgan_tpu_torch.parallel import free_port
+    data = [f"--data_dir={prepared['data_dir']}",
+            f"--tr_list_file={prepared['train']}",
+            f"--cv_list_file={prepared['cv']}"]
+    save_dir = os.path.join(work, "parallel_cli")
+    port = free_port()
+    codes, outs, secs, counts = cli_processes(lambda i: [
+        *GAN_RNN_RECIPE, "--min_epoches=1", "--max_epoches=1", *data,
+        f"--save_dir={save_dir}", *coordinator_flags(port, i)], PAR_RANKS,
+        counts_dir=os.path.join(work, "parallel_cli_counts"))
+    if codes != [0] * PAR_RANKS:
+        raise RuntimeError(f"two-process training exited {codes}: "
+                           + outs[0][-2000:] + outs[-1][-2000:])
+    rows = {}
+    for split in ("train", "eval"):
+        with open(os.path.join(save_dir, f"metrics_{split}.jsonl")) as f:
+            rows[split] = [json.loads(line) for line in f]
+    files = sorted(os.listdir(save_dir))
+    events = {s: len(os.listdir(os.path.join(save_dir, s)))
+              for s in ("train", "eval")}
+    only_rank0 = (all(len(r) == 1 for r in rows.values())
+                  and events == {"train": 1, "eval": 1}
+                  and [f for f in files if f.endswith(".ckpt")]
+                  == ["GAN_RNN-1.ckpt"]
+                  and "Iteration" in outs[0]
+                  and all("Iteration" not in o for o in outs[1:]))
+    backend_line = next((ln for ln in outs[0].splitlines()
+                         if ln.startswith("LOG: data-parallel world")), "")
+    row = rows["train"][0]
+    losses = {k: v for r in (row, rows["eval"][0]) for k, v in r.items()
+              if k.endswith("loss")}
+
+    def decode_argv(dst, *extra):
+        return ["--decode", "--trainer=gan_rnn", "--g_type=res_lstm_l",
+                f"--input_dim={P}", f"--output_dim={OUT}",
+                "--decode_batch_size=16", f"--data_dir={prepared['data_dir']}",
+                f"--test_list_file={prepared['cv']}", f"--save_dir={dst}",
+                *extra]
+
+    arks = {}
+    for tag, extra in (("bf16", []), ("f32", ["--bf16=false"])):
+        dst = os.path.join(work, f"parallel_decode_{tag}")
+        shutil.copytree(save_dir, dst)
+        rc = train_cli.main(decode_argv(dst, *extra))
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"decode of the two-process checkpoint "
+                               f"returned {rc}")
+        arks[tag] = read_ark(os.path.join(dst, "test", "feats.scp"))
+    decode_ok = (len(arks["bf16"]) == 16
+                 and all(m.shape[1] == OUT and np.isfinite(m).all()
+                         for m in arks["bf16"].values()))
+    dst = os.path.join(work, "parallel_decode_ranks")
+    shutil.copytree(save_dir, dst)
+    port = free_port()
+    dcodes, douts, dsecs, dcounts = cli_processes(lambda i: [
+        *decode_argv(dst, "--bf16=false"), *coordinator_flags(port, i)],
+        PAR_RANKS, counts_dir=os.path.join(work, "parallel_decode_counts"))
+    if dcodes != [0] * PAR_RANKS:
+        raise RuntimeError(f"two-process decode exited {dcodes}: "
+                           + douts[0][-2000:] + douts[-1][-2000:])
+    ranks_ark = read_ark(os.path.join(dst, "test", "feats.scp"))
+    want = arks["f32"]
+    decode_err = (max(float(np.abs(ranks_ark[u] - m).max())
+                      for u, m in want.items())
+                  if list(ranks_ark) == list(want) else float("inf"))
+    train_routes = all(c[k] > 0 for c in counts
+                       for k in ("wavefront_fwd_train", "lstm_fwd",
+                                 "lstm_bwd")) and all(
+        c["lstm_bwd_acc"] == 0 for c in counts)
+    decode_routes = all(c["wavefront_fwd"] > 0 and c["lstm_bwd"] == 0
+                        for c in dcounts)
+    totals = ("wavefront_fwd_train", "wavefront_fwd", "lstm_fwd", "lstm_bwd",
+              "lstm_bwd_acc")
+    return {"cli": {"flags": "recipes/run_gan_rnn.sh (--same_batch=false, "
+                             "B=8 a rank), bf16, 1 epoch, 2 processes",
+                    "exit_codes": codes, "seconds": secs,
+                    "backend_line": backend_line,
+                    "only_rank0_writes": only_rank0, "files": files,
+                    "losses": losses, "steps": row["train_steps"],
+                    "ms_per_step": 1e3 * row["train_secs"]
+                    / row["train_steps"],
+                    "train_frames_per_s": row["train_frames_per_sec"],
+                    "launches_per_rank": [{k: c[k] for k in totals}
+                                          for c in counts],
+                    "by_shape_per_rank": [by_shape(c) for c in counts],
+                    "routes_ok": train_routes, "decode_ok": decode_ok},
+            "decode": {"exit_codes": dcodes, "seconds": dsecs,
+                       "utterances": len(ranks_ark),
+                       "max_abs_err_vs_one_process": decode_err,
+                       "tol": DECODE_TOL_F32,
+                       "launches_per_rank": [{k: c[k] for k in totals}
+                                             for c in dcounts],
+                       "by_shape_per_rank": [by_shape(c) for c in dcounts],
+                       "routes_ok": decode_routes},
+            "ok": (only_rank0 and " over gloo " in backend_line and decode_ok
+                   and train_routes and decode_routes
+                   and all(np.isfinite(v) for v in losses.values())
+                   and decode_err <= DECODE_TOL_F32)}
+
+
+def mps_status() -> dict:
+    """Whether the card runs the MPS server (two ranks' 132-block
+    cooperative grids could not then be resident at once): the compute
+    mode nvidia-smi reports and whether an MPS control pipe exists."""
+    try:
+        q = subprocess.run(["nvidia-smi", "-q"], capture_output=True,
+                           text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return {"error": str(e)}
+    mode = next((ln.split(":", 1)[1].strip() for ln in q.splitlines()
+                 if ln.strip().startswith("Compute Mode")), None)
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps")
+    return {"compute_mode": mode,
+            "mps_pipe": os.path.exists(os.path.join(pipe, "control")),
+            "mps_in_query": "MPS" in q}
+
+
+def parallel_shapes(runs: dict) -> dict:
+    """"wrapper shape_key" -> {run: [each rank's launches there]} for
+    every shape that a rank of ``runs`` (run -> each rank's counts by
+    shape) launched a kernel at, in a fixed order."""
+    keys = sorted({(name, key) for ranks in runs.values() for c in ranks
+                   for name in PAR_KERNELS for key in c[f"{name}_by_shape"]})
+    return {f"{name} {key}": {run: [c[f"{name}_by_shape"].get(key, 0)
+                                    for c in ranks]
+                              for run, ranks in runs.items()}
+            for name, key in keys}
+
+
+def phase_parallel(work: str, prepared: dict) -> dict:
+    """Data parallelism on the card: (a) the library step on two ranks
+    sharing the first card over gloo against the one-process step; (b)
+    the recipe's two-process CLI epoch and the decode of its checkpoint;
+    (c) the two-process decode against the one-process decode; (d) with
+    two or more cards, the library step a rank a card over nccl and a
+    --num_gpu=2 epoch, else a line saying it was not run. Then every
+    kernel at each shape a rank launched it at in those runs, against its
+    twin in f32 and bf16 (T the library batch's t_pad, rows of rank 0's
+    lengths). Times: two ranks time-slicing one card, not scaling."""
+    import torch
+    card = card_name_and_limit()
+    mps = mps_status()
+    lib = parallel_library_step(prepared["train"], work, PAR_RANKS,
+                                per_card=False)
+    cli = parallel_cli(prepared, work)
+    out = {"phase": "parallel", "mps": mps, "library_step": lib, **cli,
+           "name, power.limit": card}
+    runs = {"library_step": lib["by_shape_per_rank"],
+            "cli_epoch": cli["cli"]["by_shape_per_rank"],
+            "cli_decode": cli["decode"]["by_shape_per_rank"]}
+    cards = torch.cuda.device_count()
+    multi_ok = True
+    if cards >= 2:
+        nccl = parallel_library_step(prepared["train"], work, 2,
+                                     per_card=True)
+        runs["library_step_nccl"] = nccl["by_shape_per_rank"]
+        codes, outs, secs, _ = cli_processes(lambda i: [
+            *GAN_RNN_RECIPE, "--min_epoches=1", "--max_epoches=1",
+            "--num_gpu=2", f"--data_dir={prepared['data_dir']}",
+            f"--tr_list_file={prepared['train']}",
+            f"--cv_list_file={prepared['cv']}",
+            f"--save_dir={os.path.join(work, 'parallel_num_gpu')}"], 1,
+            shared_card=False)
+        multi_ok = (nccl["ok"] and nccl["backend"] == "nccl"
+                    and codes == [0] and " over nccl " in outs[0])
+        out["multi_card"] = {"library_step": nccl, "num_gpu_2_rc": codes[0],
+                             "num_gpu_2_seconds": secs, "ok": multi_ok}
+    else:
+        emit({"phase": "parallel_multi_card", "run": False,
+              "why": f"torch.cuda.device_count() is {cards}: NCCL needs "
+                     "a card a rank, so the NCCL step and --num_gpu=2 "
+                     "were not run (this line is not a pass)"})
+    out["launches_by_shape"] = parallel_shapes(runs)
+    t0 = time.monotonic()
+    kernels = {d: [chain_kernel(*shape.split(" "), d, T_=lib["t_pad"],
+                                lengths=lib["rank0_lengths"],
+                                phase="parallel_kernels")
+                   for shape in out["launches_by_shape"]]
+               for d in ("float32", "bfloat16")}
+    out["kernel_check_seconds"] = time.monotonic() - t0
+    out["timing_note"] = ("two ranks time-slicing one card (gloo), not "
+                          "scaling; ms per f32 library step after the "
+                          "checked one; the collectives' share is the wall "
+                          "time inside them, a synchronize of this rank's "
+                          "stream before each, so the wait for the other "
+                          "rank to reach it included")
+    out["ok"] = (lib["ok"] and lib["backend"] == "gloo" and cli["ok"]
+                 and multi_ok and bool(out["launches_by_shape"])
+                 and all(r["ok"] for rs in kernels.values() for r in rs))
+    emit(out)
+    out["kernels"] = kernels
+    return out
+
+
 # The feed phase's corpus: about 2 GB of f32 tables (257 + 40 columns),
 # utterances of 150-600 frames; the reference's training set (~100 h) is
 # ~36 M frames, which the upload rate is extrapolated to.
@@ -2698,11 +3182,12 @@ def chain_counters() -> dict:
             ("lstm_bwd", ls.lstm_bwd))}}
 
 
-def chain_kernel(kernel: str, key: str, dtype_name: str) -> dict:
-    """One kernel at one shape that a chain launched (T=CHAIN_T, ragged
-    rows), every stream against its twin at the kernel phases'
-    tolerances, on seeded inputs: K4 in train or decode mode; K1; K2 on
-    its forward twin's streams."""
+def chain_kernel(kernel: str, key: str, dtype_name: str, T_: int = CHAIN_T,
+                 lengths=CHAIN_LENGTHS, phase: str = "chain_kernels") -> dict:
+    """One kernel at one shape that a run launched (``T_`` steps, rows of
+    ``lengths`` repeated), every stream against its twin at the kernel
+    phases' tolerances, on seeded inputs: K4 in train or decode mode; K1;
+    K2 on its forward twin's streams."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
@@ -2710,16 +3195,16 @@ def chain_kernel(kernel: str, key: str, dtype_name: str) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     sh = parse_shape(key)
     U_, P_, B_ = sh["U"], sh["P"], sh["B"]
-    lens = (CHAIN_LENGTHS * (1 + B_ // len(CHAIN_LENGTHS)))[:B_]
+    lens = (list(lengths) * (1 + B_ // len(lengths)))[:B_]
     seed = sum(map(ord, kernel + key))
-    extra = {"phase": "chain_kernels", "shape": key, "T": CHAIN_T}
+    extra = {"phase": phase, "shape": key, "T": T_}
     streams4 = ("taps", "c_hist", "h_hist", "acts")
     if kernel.startswith("wavefront"):
         L_, residual, train = sh["L"], bool(sh["residual"]), "train" in kernel
-        args = kernel_inputs(seed, L_, U_, P_, B_, CHAIN_T, lens, cdt, "cuda")
+        args = kernel_inputs(seed, L_, U_, P_, B_, T_, lens, cdt, "cuda")
         extra.update(**resident_grid(wf.resident_plan(B_, L_, U_, P_, cdt,
                                                       sms)),
-                     **wavefront_bound(L_, U_, P_, B_, CHAIN_T, lens,
+                     **wavefront_bound(L_, U_, P_, B_, T_, lens,
                                        dtype_name, train=train,
                                        residual=residual))
         if train:
@@ -2738,7 +3223,7 @@ def chain_kernel(kernel: str, key: str, dtype_name: str) -> dict:
     rng = np.random.default_rng(seed)
     prm = layer_params(rng, P_, U_, P_, cdt, "cuda")
     x = torch.from_numpy(
-        rng.normal(size=(CHAIN_T, B_, P_)).astype(np.float32)).cuda()
+        rng.normal(size=(T_, B_, P_)).astype(np.float32)).cuda()
     xw = (x.to(cdt).float() @ prm["w_x"].to(cdt).float()).to(cdt)
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     k1_args = (xw, lens_t, prm["w_h"], prm["proj"], prm["bias"], prm["wi"],
@@ -2748,17 +3233,17 @@ def chain_kernel(kernel: str, key: str, dtype_name: str) -> dict:
                      lambda: ls.lstm_fwd_reference(*k1_args), streams4,
                      **extra,
                      **rowgroup_grid(ls.rowgroup_plan(B_, U_, P_, cdt, sms)),
-                     **k1_bound(U_, P_, B_, CHAIN_T, lens, dtype_name))
+                     **k1_bound(U_, P_, B_, T_, lens, dtype_name))
     _, c_h, _, acts = ls.lstm_fwd_reference(*k1_args)
     dout = torch.from_numpy(
-        rng.normal(size=(CHAIN_T, B_, P_)).astype(np.float32)).cuda()
+        rng.normal(size=(T_, B_, P_)).astype(np.float32)).cuda()
     k2_args = (acts, lens_t, dout, c_h, prm["w_h"], prm["proj"], prm["wi"],
                prm["wf"], prm["wo"])
     return timed(kernel, dtype_name, lambda: ls.lstm_bwd(*k2_args),
                  lambda: ls.lstm_bwd_reference(*k2_args), ("dxw", "m", "dh"),
                  **extra,
                  **resident_grid(ls.resident_plan(B_, U_, P_, cdt, sms)),
-                 **bwd_bound(U_, P_, B_, CHAIN_T, lens, dtype_name,
+                 **bwd_bound(U_, P_, B_, T_, lens, dtype_name,
                              acc=False))
 
 
@@ -3397,8 +3882,8 @@ def card_name_and_limit() -> str:
 
 
 PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
-          "train_mse", "train_frame", "segan", "feed", "decode", "chain",
-          "serve", "proxy")
+          "train_mse", "train_frame", "segan", "parallel", "feed", "decode",
+          "chain", "serve", "proxy")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -3426,7 +3911,16 @@ def kernels_line(results: dict) -> dict:
     """One entry per kernel: launches from the main-path runs (train and
     decode phases; ``launches_per`` names the run), error and times from
     the bf16 kernel phases at the main path's shapes, bounds from those
-    phases' inputs."""
+    phases' inputs; then one entry per shape that the chains, and one per
+    shape that the data-parallel ranks, launched, from the bf16 check at
+    that shape."""
+    labels = {"wavefront_fwd_train": ("wavefront_fwd (train, "
+                                      "save_acts=True", REPLACES),
+              "wavefront_fwd": ("wavefront_fwd (decode, save_acts=False",
+                                REPLACES),
+              "lstm_fwd": ("lstm_fwd (K1", "rsrgan_tpu/ops/pallas_lstm.py:74"),
+              "lstm_bwd": ("lstm_bwd (K2",
+                           "rsrgan_tpu/ops/pallas_lstm.py:196")}
     dec = results["kernel"]["bfloat16"]
     entries = [kernel_entry(
         "wavefront_fwd (decode, save_acts=False)", RESIDENT, REPLACES,
@@ -3512,14 +4006,6 @@ def kernels_line(results: dict) -> dict:
         # one entry per shape the chains launched: its checks at that
         # shape, its launches there in each chain's train and decode
         chain = results["chain"]
-        labels = {"wavefront_fwd_train": ("wavefront_fwd (train, "
-                                          "save_acts=True", REPLACES),
-                  "wavefront_fwd": ("wavefront_fwd (decode, "
-                                    "save_acts=False", REPLACES),
-                  "lstm_fwd": ("lstm_fwd (K1",
-                               "rsrgan_tpu/ops/pallas_lstm.py:74"),
-                  "lstm_bwd": ("lstm_bwd (K2",
-                               "rsrgan_tpu/ops/pallas_lstm.py:196")}
         for r in chain["kernels"]["bfloat16"]:
             label, replaces = labels[r["kernel"]]
             per = {f"{t}_{stage}": counts[f"{r['kernel']}_by_shape"].get(
@@ -3532,6 +4018,25 @@ def kernels_line(results: dict) -> dict:
                 "both recipe chains' train and decode stages (96 "
                 "utterances, 20 epochs, --batch_size=4)", r, r)
             entry["launches_chain"] = per
+            entries.append(entry)
+    for entry in entries:
+        entry["launches_parallel"] = None  # shapes no rank runs
+    if "parallel" in results:
+        # one entry per shape a data-parallel rank launched: its check at
+        # that shape, each rank's launches there in each run
+        par = results["parallel"]
+        for r in par["kernels"]["bfloat16"]:
+            label, replaces = labels[r["kernel"]]
+            per = par["launches_by_shape"][f"{r['kernel']} {r['shape']}"]
+            entry = kernel_entry(
+                f"{label}; a data-parallel rank at {r['shape']})", RESIDENT,
+                replaces, sum(sum(ranks) for ranks in per.values()),
+                "every rank of the parallel phase's runs (the f32 library "
+                "step, the recipe's bf16 two-process epoch, the f32 "
+                "two-process decode; launches_parallel: run -> each "
+                "rank's launches)", r, r)
+            entry["launches_chain"] = None
+            entry["launches_parallel"] = per
             entries.append(entry)
     return {"kernels": entries}
 
@@ -3575,7 +4080,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         # the train phases train from the prepare phase's stores
         if {"prepare", "train", "train_mse", "train_frame",
-                "segan"} & set(phases):
+                "segan", "parallel"} & set(phases):
             prepared = phase_prepare(work)
             oks.append(prepared["ok"])
         if "train" in phases:
@@ -3591,6 +4096,9 @@ def main(argv=None) -> int:
             oks.append(phase_train_frame(work, prepared["lists"])["ok"])
         if "segan" in phases:
             oks.append(phase_segan(work, prepared["lists"])["ok"])
+        if "parallel" in phases:
+            results["parallel"] = phase_parallel(work, prepared["lists"])
+            oks.append(results["parallel"]["ok"])
         if "feed" in phases:
             oks.append(phase_feed(work)["ok"])
         if "decode" in phases:

@@ -5,8 +5,9 @@ The port runs on one NVIDIA H100. It mirrors the module names of
 stays the reference that every module here is tested against.
 
 Layer map (what this package holds today — the LSGAN, MSE and frame
-trainers and their decode, data preparation, the waveform chain from a
-wave to a score, streaming serving and the recognition proxy):
+trainers and their decode on one device or data parallel, data
+preparation, the waveform chain from a wave to a score, streaming
+serving and the recognition proxy):
   sim/       numpy and scipy copies of the corpus simulation: wav I/O,
              RIR convolution and SNR mixing, synthetic speech and rooms
   features/  the LPS and hires MFCC front-end in PyTorch on any device
@@ -29,6 +30,9 @@ wave to a score, streaming serving and the recognition proxy):
   models/    ResLstmGenerator, LstmGenerator, the frame generators DNN,
              R-CED and CNN, LstmDiscriminator, DnnDiscriminator, their
              registries and the weight bridge to flax trees
+  parallel/  data parallelism: a rank a process and a device (gloo or
+             NCCL by layout), the world's mean of each update, the global
+             batch's statistics and draws, the launcher of --num_gpu
   serving/   chunked enhancement with carried LSTM state (the eager
              cell on the card), wav -> wav streaming (host numpy DSP) and
              the batched multi-stream pool

@@ -53,9 +53,26 @@ The flags are the JAX CLI's, plus ``--device``. This port runs, on
 wavefront stack for G, the single-layer kernels for D below 64 rows),
 ``pallas`` the single-layer kernels for every layer, ``scan`` the eager
 cell under autograd (the f32 oracle). The CLI turns TF32 off, so f32 is
-f32 on a card. ``--num_gpu > 1`` and multi-process runs raise
-``NotImplementedError`` naming their ROADMAP.md item; ``--deconv_type``
-is parsed and unused, as in JAX.
+f32 on a card. ``--deconv_type`` is parsed and unused, as in JAX.
+
+Data parallelism (``parallel``): ``--num_gpu=N`` spawns N ranks, one a
+card (``cuda:r``; N above the cards raises), or N gloo ranks on the CPU
+with ``--device=cpu``; ``--coordinator_address=host:port
+--num_processes=N --process_id=i`` makes this process rank i, on
+``cuda:{i % cards}``, and ignores ``--num_gpu``. The backend follows the
+layout (``nccl`` where each rank has a card of its own, ``gloo`` where
+ranks share one and on the CPU; the ``LOG:`` line names it). Each rank
+trains on its row block of every global batch of ``--batch_size`` x N
+rows, at the learning rates x N (the schedules too), with each update's
+gradients and metrics averaged over the world and the batch statistics
+of the global batch. Multi-process runs take the host-sharded views
+(full global batches only) and the host feed; ``--num_gpu`` runs shard
+every global batch and raise where its rows do not divide, as JAX's
+mesh does. Only rank 0 writes checkpoints, snapshots, metrics and
+TensorBoard files. ``--decode --num_gpu=N --decode_batch_size>1`` (a
+sequence trainer) pads each batch's rows to a multiple of N, decodes a
+block on each rank and gathers the rows to rank 0, which writes the
+ark; any other decode in a multi-rank run runs on rank 0 alone.
 
     python -m rsrgan_tpu_torch.cli.train --trainer=gan_rnn \\
         --g_type=res_lstm_l --tr_list_file=tr.list --cv_list_file=cv.list \\
@@ -70,6 +87,10 @@ is parsed and unused, as in JAX.
     python -m rsrgan_tpu_torch.cli.train --decode --trainer=gan_rnn \\
         --g_type=res_lstm_l --data_dir=DATA --test_list_file=test.list \\
         --save_dir=exp/gan_rnn --decode_batch_size=16
+    python -m rsrgan_tpu_torch.cli.train --trainer=gan_rnn \\
+        --g_type=res_lstm_l --batch_size=8 --num_gpu=4 ...
+    python -m rsrgan_tpu_torch.cli.train ... \\
+        --coordinator_address=host0:8476 --num_processes=2 --process_id=0
 """
 
 from __future__ import annotations
@@ -90,6 +111,8 @@ import torch
 from rsrgan_tpu_torch.cli import (resolve_device, set_precision,
                                   str2bool)
 from rsrgan_tpu_torch.data import (ArkWriter, FrameBatcher,
+                                   HostShardedFrameBatches,
+                                   HostShardedSequenceBatches,
                                    SequenceBatcher, StoreView,
                                    ThreadedPrefetcher, UtteranceStore,
                                    bucket_id, infer_batches, load_cmvn_npz,
@@ -103,6 +126,10 @@ from rsrgan_tpu_torch.models import (get_discriminator, get_generator,
 from rsrgan_tpu_torch.models.segan import (SeganAEGenerator,
                                            SeganDiscriminator,
                                            SeganWaveGenerator)
+from rsrgan_tpu_torch.parallel import (current_world, gather_rows,
+                                       initialize, is_coordinator, launch,
+                                       make_world, replicate, shard_batch,
+                                       shutdown)
 from rsrgan_tpu_torch.training import (GanTrainer, ImprovementTracker,
                                        MseTrainer, SeganTrainer,
                                        exponential_decay,
@@ -121,12 +148,12 @@ SEGAN_METRICS = ("d_rl_loss", "d_fk_loss", "d_loss", "g_adv_loss",
                  "g_l1_loss", "g_loss")
 SEQUENCE_TRAINERS = ("gan_rnn", "rnn")
 
-_ROADMAP = "see ROADMAP.md, Queue 1"
-
 
 def log(msg: str) -> None:
-    print(msg)
-    sys.stdout.flush()
+    """Print on the coordinator (every rank runs the same loop)."""
+    if is_coordinator():
+        print(msg)
+        sys.stdout.flush()
 
 
 def model_name(args) -> str:
@@ -171,11 +198,22 @@ def validate_checkpoint_compat(args, name: str) -> None:
             + " (from the checkpoint's .meta.json sidecar)")
 
 
+def sharded_decode(args) -> bool:
+    """Whether a decode spreads its batches over the ranks: batched
+    decode of a sequence trainer, as JAX decodes over a mesh only there."""
+    return args.trainer in SEQUENCE_TRAINERS and args.decode_batch_size > 1
+
+
 def run_decode(args) -> int:
-    if args.num_gpu > 1:
-        raise NotImplementedError(
-            f"--num_gpu={args.num_gpu} (data-parallel decode) is not ported "
-            f"yet; {_ROADMAP}, 'Parallel'")
+    """G forward over the test store, denormalised, into a Kaldi ark. In
+    a multi-rank world a sharded decode (``sharded_decode``) pads each
+    batch's rows to a multiple of the world, runs each rank's block and
+    gathers the rows on every rank; rank 0 writes. Any other decode runs
+    on rank 0 alone."""
+    world = current_world()
+    sharded = world.world > 1 and sharded_decode(args)
+    if world.world > 1 and not sharded and world.rank != 0:
+        return 0
     device = resolve_device(args.device)
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     name = model_name(args)
@@ -214,17 +252,22 @@ def run_decode(args) -> int:
 
     @torch.no_grad()
     def infer(inputs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+        if sharded:
+            inputs, lengths = shard_batch(world, (inputs, lengths))
         x = torch.from_numpy(inputs).to(device)
         out = (gen(x, torch.from_numpy(lengths).to(device)) if sequence
                else gen(x))
-        return out.float().cpu().numpy()
+        return gather_rows(world, out.float()).cpu().numpy()
 
     start = datetime.datetime.now()
-    with ArkWriter(os.path.join(out_dir, "feats.scp"),
-                   compress=args.compress, text=args.text) as writer:
+    writer = (ArkWriter(os.path.join(out_dir, "feats.scp"),
+                        compress=args.compress, text=args.text)
+              if is_coordinator() else None)
+    try:
         if sequence and args.decode_batch_size > 1:
             _decode_batched(args, test_store, infer, labels_cmvn, writer,
-                            ark_path)
+                            ark_path, row_quant=world.world if sharded
+                            else 1)
         else:
             num_batch = len(test_store)
             for i, batch in enumerate(infer_batches(test_store,
@@ -239,6 +282,9 @@ def run_decode(args) -> int:
                                       labels_cmvn.denormalize(act))
                 log(f"[{i + 1}/{num_batch}] Write inferred "
                     f"{batch.utt_ids[0]} to {ark_path}")
+    finally:
+        if writer is not None:
+            writer.close()
     took = (datetime.datetime.now() - start).total_seconds()
     frames = int(test_store.lengths.sum())
     log(f"Decoding time is {took}s ({frames} frames, "
@@ -247,9 +293,13 @@ def run_decode(args) -> int:
 
 
 def _decode_batched(args, test_store, infer, labels_cmvn, writer,
-                    ark_path) -> None:
+                    ark_path, row_quant: int = 1) -> None:
     """Batched enhancement: group utterances by padded length (128-frame
-    quantization), run B at a time, write results back in scp order."""
+    quantization), run B at a time, write results back in scp order
+    (``writer`` None: nothing is written). ``row_quant``: each batch's
+    rows are rounded up to a multiple of it with zero rows of full
+    length (their outputs are dropped), so that they divide over the
+    ranks."""
     B = args.decode_batch_size
     lengths = test_store.lengths
     pad = [int(-(-l // 128) * 128) for l in lengths]
@@ -264,9 +314,10 @@ def _decode_batched(args, test_store, infer, labels_cmvn, writer,
                and pad[order[idx]] == t_pad):
             group.append(order[idx])
             idx += 1
-        x = np.zeros((len(group), t_pad, test_store.input_dim * splice),
+        rows = -(-len(group) // row_quant) * row_quant
+        x = np.zeros((rows, t_pad, test_store.input_dim * splice),
                      np.float32)
-        lens = np.full((len(group),), t_pad, np.int32)
+        lens = np.full((rows,), t_pad, np.int32)
         for row, i in enumerate(group):
             feats = splice_frames_np(np.asarray(test_store.inputs(i)),
                                      args.left_context, args.right_context)
@@ -275,8 +326,10 @@ def _decode_batched(args, test_store, infer, labels_cmvn, writer,
         act = infer(x, lens)
         for row, i in enumerate(group):
             results[i] = labels_cmvn.denormalize(act[row, :lens[row]])
-    for i in range(len(test_store)):
-        writer.write_next_utt(ark_path, test_store.utt_ids[i], results[i])
+    if writer is not None:
+        for i in range(len(test_store)):
+            writer.write_next_utt(ark_path, test_store.utt_ids[i],
+                                  results[i])
     log(f"Wrote {len(results)} utterances (batched decode, B={B})")
 
 
@@ -309,15 +362,20 @@ def _avg(accum: list) -> dict:
 class MetricsWriter:
     """The JAX CLI's metrics sink: ``metrics_{split}.jsonl``, one line per
     iteration, and with ``tensorboard`` the same scalars as TensorBoard
-    event files under ``save_dir/{split}``."""
+    event files under ``save_dir/{split}``; on the coordinator only."""
 
     def __init__(self, save_dir: str, split: str, tensorboard: bool):
-        os.makedirs(save_dir, exist_ok=True)
+        self.enabled = is_coordinator()
         self.path = os.path.join(save_dir, f"metrics_{split}.jsonl")
-        self._tb = (EventFileWriter(os.path.join(save_dir, split))
-                    if tensorboard else None)
+        self._tb = None
+        if self.enabled:
+            os.makedirs(save_dir, exist_ok=True)
+            if tensorboard:
+                self._tb = EventFileWriter(os.path.join(save_dir, split))
 
     def write(self, iteration: int, metrics: dict) -> None:
+        if not self.enabled:
+            return
         scalars = {k: float(v) for k, v in metrics.items()}
         with open(self.path, "a") as f:
             f.write(json.dumps({"iteration": iteration, **scalars}) + "\n")
@@ -332,10 +390,12 @@ class MetricsWriter:
 class PeriodicSnapshotter:
     """--checkpoint_every_secs: a crash-recovery snapshot of the whole
     state, ``{name}.periodic.ckpt``, at most once per ``every_secs``
-    (checked after each update); off at 0."""
+    (checked after each update); off at 0 and off on every rank but the
+    coordinator."""
 
     def __init__(self, save_dir: str, name: str, every_secs: float):
-        self.save_dir, self.name, self.every = save_dir, name, every_secs
+        self.save_dir, self.name = save_dir, name
+        self.every = every_secs if is_coordinator() else 0.0
         self._last = time.monotonic()
 
     def maybe(self, state) -> None:
@@ -349,7 +409,7 @@ class PeriodicSnapshotter:
         """Drop the snapshot when the live state is rolled back: a
         snapshot of the rejected trajectory must not win on resume."""
         path = periodic_snapshot_path(self.save_dir, self.name)
-        if os.path.isfile(path):
+        if is_coordinator() and os.path.isfile(path):
             os.remove(path)
 
 
@@ -358,10 +418,11 @@ class Profiler:
     (the second of the sequence loop, the second epoch of the frame
     loop), written by ``tensorboard_trace_handler``; view it in
     TensorBoard or Perfetto. CUDA activities are traced where the device
-    is a card."""
+    is a card. Only the coordinator traces."""
 
     def __init__(self, profile_dir: Optional[str], device: torch.device):
-        self.dir, self.device = profile_dir, device
+        self.dir = profile_dir if is_coordinator() else None
+        self.device = device
         self._prof = None
 
     def start(self) -> None:
@@ -385,10 +446,26 @@ class Profiler:
 def restore_state(args, name: str, state) -> Tuple[Optional[str], str]:
     """Restore the latest accepted checkpoint into ``state``; with
     periodic snapshots on, a newer snapshot wins (crash recovery).
-    Returns (the file restored or None, its kind)."""
+    Returns (the file restored or None, its kind). Every rank restores
+    the same files; then ``replicate_state``."""
     if args.checkpoint_every_secs > 0:
         return load_newest_state(args.save_dir, name, state)
     return load_checkpoint(args.save_dir, name, state), "checkpoint"
+
+
+def replicate_state(state) -> None:
+    """Every tensor of a trainer's state set to rank 0's (a no-op in one
+    process)."""
+    nets = (state.g, state.d) if hasattr(state, "g") else (state.net,)
+    for net in nets:
+        replicate(current_world(), net.tensors())
+
+
+def save_state(args, name: str, state, step: int) -> None:
+    """The accepted checkpoint, written by the coordinator alone."""
+    if is_coordinator():
+        save_checkpoint(args.save_dir, name, state_tree(state), step,
+                        meta=ckpt_meta(args))
 
 
 def spliced_width(args) -> int:
@@ -522,16 +599,19 @@ def decide_device_feed(args, tr_store, cv_store,
     """Resolve --device_feed/--device_feed_dtype to a FeedPlan, or None for
     the host feed (the JAX CLI's rule).
 
-    The gathered path covers the sequence trainers in a single process,
-    except the graph-fed GAN (--same_batch=false), which keeps the host
-    feed. ``auto`` turns it on where the run's device is a card, ``on``
-    on any device. Tables over the budget (RSRGAN_FEED_HBM_BUDGET, bytes;
+    The gathered path covers the sequence trainers in a single process
+    and in a ``--num_gpu`` world (each rank holds the whole tables on its
+    own card: the budget is per card), except the graph-fed GAN
+    (--same_batch=false); it and multi-process runs keep the host feed.
+    ``auto`` turns it on where the run's device is a card, ``on`` on any
+    device. Tables over the budget (RSRGAN_FEED_HBM_BUDGET, bytes;
     default ``default_feed_budget``) drop to bfloat16, and bfloat16 tables
     over it rotate resident shards (RotatingDeviceFeed).
     """
     if args.device_feed == "off":
         return None
     eligible = (args.trainer in ("gan_rnn", "rnn")
+                and not args.coordinator_address
                 and (args.trainer != "gan_rnn" or args.same_batch))
     if not eligible:
         if args.device_feed == "on":
@@ -590,14 +670,28 @@ def dispatch_order(keys: Sequence[Hashable],
     return order
 
 
-def dispatch_plans(batchers, steps_per_call: int
-                   ) -> List[Tuple[List[int], int]]:
-    """(indices, t_pad) of every batch plan of ``batchers`` (one pass each,
-    in turn) in dispatch order."""
-    plans = [(b, ix) for b in batchers for ix in b.iter_index_batches()]
-    keys = [plan_key(b.lengths[ix], b.num_buckets) for b, ix in plans]
-    return [(plans[i][1], keys[i][0])
-            for i in dispatch_order(keys, steps_per_call)]
+def rank_plans(batcher, view=None) -> List[Tuple[Sequence[int], int]]:
+    """One epoch of ``batcher``'s plans as this rank trains them:
+    (its indices, the global batch's t_pad). In one process every plan;
+    in a ``--num_gpu`` world this rank's row block of every plan (rows
+    that do not divide over the world raise, as on JAX's mesh); in a
+    multi-process run ``view``'s (``HostShardedSequenceBatches``: full
+    global batches only)."""
+    if view is not None:
+        return list(view.iter_plans())
+    world = current_world()
+    return [(shard_batch(world, ix), batcher.plan_t_pad(ix))
+            for ix in batcher.iter_index_batches()]
+
+
+def dispatch_plans(plan_lists, steps_per_call: int
+                   ) -> List[Tuple[Sequence[int], int]]:
+    """The (indices, t_pad) plans of ``plan_lists`` (epochs of
+    ``rank_plans``, in turn) in dispatch order, keyed by their shape
+    (t_pad, rows)."""
+    plans = [p for pl in plan_lists for p in pl]
+    keys = [(t_pad, len(ix)) for ix, t_pad in plans]
+    return [plans[i] for i in dispatch_order(keys, steps_per_call)]
 
 
 def plan_to_device(starts: np.ndarray, lengths: np.ndarray,
@@ -612,10 +706,21 @@ def plan_to_device(starts: np.ndarray, lengths: np.ndarray,
     return dev[0], dev[1]
 
 
-def make_hparams(args) -> Dict[str, float]:
+def world_total(count: int) -> int:
+    """A count summed over the ranks (the count itself in one process)."""
+    world = current_world()
+    if world.world == 1:
+        return count
+    total = torch.tensor([float(count)], dtype=torch.float64,
+                         device=world.device)
+    return int(world.all_reduce_sum_(total).item())
+
+
+def make_hparams(args, num_devices: int = 1) -> Dict[str, float]:
     """The steps' assignable scalars at their initial values (the JAX
-    CLI's ``make_hparams`` on one device)."""
-    return {"g_lr": args.g_learning_rate, "d_lr": args.d_learning_rate,
+    CLI's ``make_hparams``): the learning rates x the world."""
+    return {"g_lr": args.g_learning_rate * num_devices,
+            "d_lr": args.d_learning_rate * num_devices,
             "mse_lambda": args.init_mse_weight,
             "l1_lambda": args.init_l1_weight,
             "disc_noise_std": args.init_disc_noise_std,
@@ -627,12 +732,11 @@ def run_sequence_training(args) -> int:
     --trainer=gan_rnn and --trainer=rnn: the device feed (resident or
     rotating tables), the graph-fed loop (gan_rnn with
     --same_batch=false) or the host feed. The MSE trainer takes
-    ``hp["g_lr"]`` as its learning rate."""
-    if args.num_gpu > 1:
-        raise NotImplementedError(
-            f"--num_gpu={args.num_gpu} (data-parallel training) is not "
-            f"ported yet; {_ROADMAP}, 'Parallel'")
+    ``hp["g_lr"]`` as its learning rate. In a data-parallel world each
+    rank trains on its rows of every global batch (``rank_plans``)."""
     device = resolve_device(args.device)
+    world = current_world()
+    num_devices = world.world
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
     trainer = build_trainer(args, device, compute_dtype)
     is_gan = args.trainer == "gan_rnn"
@@ -641,33 +745,42 @@ def run_sequence_training(args) -> int:
 
     tr_store = UtteranceStore(read_list_file(args.tr_list_file))
     cv_store = UtteranceStore(read_list_file(args.cv_list_file))
+    global_batch = args.batch_size * num_devices
 
     def make_batcher(store, shuffle):
-        b = SequenceBatcher(store, args.batch_size, args.left_context,
+        b = SequenceBatcher(store, global_batch, args.left_context,
                             args.right_context, shuffle=shuffle,
                             seed=args.seed)
         if b.num_batches() == 0:
             # small sets: keep the ragged batches of partial buckets
-            b = SequenceBatcher(store, args.batch_size, args.left_context,
+            b = SequenceBatcher(store, global_batch, args.left_context,
                                 args.right_context, shuffle=shuffle,
                                 drop_remainder=False, seed=args.seed)
         return b
 
     tr_batches = make_batcher(tr_store, True)
     cv_batches = make_batcher(cv_store, False)
+    tr_view = cv_view = None
+    if args.coordinator_address:
+        # the shared global plan; this process builds only its rows
+        tr_view = HostShardedSequenceBatches(tr_batches, world.rank,
+                                             num_devices)
+        cv_view = HostShardedSequenceBatches(cv_batches, world.rank,
+                                             num_devices)
     min_iters, max_iters = args.min_epoches, args.max_epoches
-    log(f"LOG: #train_batch = {tr_batches.num_batches()}, #valid_batch = "
-        f"{cv_batches.num_batches()}\n"
+    log(f"LOG: #train_batch = {(tr_view or tr_batches).num_batches()}, "
+        f"#valid_batch = {(cv_view or cv_batches).num_batches()}\n"
         f"LOG: #min_iters = {min_iters}, #max_iters = {max_iters}")
 
     state = trainer.init_state()
     restored, restore_src = restore_state(args, name, state)
     log(f"[*] Load SUCCESS ({restore_src})" if restored
         else "[!] Begin a new model.")
+    replicate_state(state)
     snapper = PeriodicSnapshotter(args.save_dir, name,
                                   args.checkpoint_every_secs)
     log_variables(state)
-    hp = make_hparams(args)
+    hp = make_hparams(args, num_devices)
     tracker = ImprovementTracker(args.end_improve)
     noise = torch.Generator(device=device).manual_seed(args.seed + 1)
     tr_writer = MetricsWriter(args.save_dir, "train", args.tensorboard)
@@ -768,7 +881,8 @@ def run_sequence_training(args) -> int:
             else:
                 batchers = [tr_batches]
                 eff_epoch += 1.0
-            for indices, t_pad in dispatch_plans(batchers, steps_per_call):
+            for indices, t_pad in dispatch_plans(
+                    [rank_plans(b) for b in batchers], steps_per_call):
                 st, le = feed_tr.plan(indices)
                 true_frames += int(le.sum())
                 tr_accum.append(gathered(
@@ -780,7 +894,9 @@ def run_sequence_training(args) -> int:
             # graph-fed: D and G steps on successive minibatches of the
             # stream, until it runs out (wherever that falls)
             d_accum, g_accum = [], []
-            stream = iter(ThreadedPrefetcher(iter(tr_batches), 32))
+            stream = iter(ThreadedPrefetcher(
+                (tr_batches._make_batch(ix, t_pad) for ix, t_pad in
+                 rank_plans(tr_batches, tr_view)), 32))
             try:
                 while True:
                     for _ in range(args.disc_updates):
@@ -800,9 +916,11 @@ def run_sequence_training(args) -> int:
             tr_m = ({**_avg(d_accum), **_avg(g_accum)}
                     if d_accum and g_accum else None)
         else:
-            plans = dispatch_plans([tr_batches], steps_per_call)
+            plans = dispatch_plans([rank_plans(tr_batches, tr_view)],
+                                   steps_per_call)
             for batch in ThreadedPrefetcher(
-                    (tr_batches._make_batch(ix) for ix, _ in plans), 32):
+                    (tr_batches._make_batch(ix, t_pad)
+                     for ix, t_pad in plans), 32):
                 true_frames += int(batch.lengths.sum())
                 tr_accum.append(train_step(*on_device(batch)))
                 snapper.maybe(state)
@@ -812,17 +930,20 @@ def run_sequence_training(args) -> int:
             return 1
         sync()   # _avg read the metrics back; the train section is done
         train_secs = (datetime.datetime.now() - start).total_seconds()
+        true_frames = world_total(true_frames)
         if feed_cv is not None:
-            for indices, t_pad in dispatch_plans([cv_batches],
+            for indices, t_pad in dispatch_plans([rank_plans(cv_batches)],
                                                  steps_per_call):
                 st, le = feed_cv.plan(indices)
                 cv_accum.append(gathered(
                     trainer.eval_step_gathered, feed_cv,
                     *plan_to_device(st, le, device), t_pad))
         else:
-            plans = dispatch_plans([cv_batches], steps_per_call)
+            plans = dispatch_plans([rank_plans(cv_batches, cv_view)],
+                                   steps_per_call)
             for batch in ThreadedPrefetcher(
-                    (cv_batches._make_batch(ix) for ix, _ in plans), 32):
+                    (cv_batches._make_batch(ix, t_pad)
+                     for ix, t_pad in plans), 32):
                 cv_accum.append(eval_step(*on_device(batch)))
         if not cv_accum:
             log("ERROR: empty cv batch stream")
@@ -867,18 +988,17 @@ def run_sequence_training(args) -> int:
         # epochs, and the initial values hold until the first completes.
         sched_t = int(eff_epoch) if rotating else iteration + 1
         if sched_t >= 1:
-            hp["g_lr"] = exponential_decay(sched_t, 1, min_iters,
+            hp["g_lr"] = exponential_decay(sched_t, num_devices, min_iters,
                                            args.g_learning_rate)
-            hp["d_lr"] = exponential_decay(sched_t, 1, min_iters,
+            hp["d_lr"] = exponential_decay(sched_t, num_devices, min_iters,
                                            args.d_learning_rate)
             hp["disc_noise_std"] = exponential_decay(
-                sched_t, 1, min_iters, args.init_disc_noise_std,
+                sched_t, num_devices, min_iters, args.init_disc_noise_std,
                 multiply_jobs=False)
 
         tracker.add(cv_m["g_loss"])
         if tracker.check(iteration):
-            save_checkpoint(args.save_dir, name, state_tree(state),
-                            iteration + 1, meta=ckpt_meta(args))
+            save_state(args, name, state, iteration + 1)
             log(f"Iteration {iteration + 1}: Nnet Accepted. "
                 f"Save model SUCCESS.")
         else:
@@ -908,12 +1028,13 @@ def run_frame_training(args) -> int:
     staged rate. SEGAN's state starts from the first train batch (D's VBN
     statistics); its steps draw z and D's noise from a generator seeded
     with --seed + 1, and each CV batch from one seeded with 0, as the JAX
-    loop gives every CV batch ``PRNGKey(0)``."""
-    if args.num_gpu > 1:
-        raise NotImplementedError(
-            f"--num_gpu={args.num_gpu} (data-parallel training) is not "
-            f"ported yet; {_ROADMAP}, 'Parallel'")
+    loop gives every CV batch ``PRNGKey(0)``. In a data-parallel world
+    each rank trains on its rows of every global batch of --batch_size x
+    the world, at the learning rates x the world; SEGAN's state starts
+    from the whole first global batch on every rank."""
     device = resolve_device(args.device)
+    world = current_world()
+    num_devices = world.world
     trainer = build_trainer(args, device, torch.float32)
     is_gan = args.trainer == "gan_dnn"
     is_segan = args.trainer == "segan"
@@ -924,12 +1045,19 @@ def run_frame_training(args) -> int:
 
     tr_store = UtteranceStore(read_list_file(args.tr_list_file))
     cv_store = UtteranceStore(read_list_file(args.cv_list_file))
-    tr_batches = FrameBatcher(tr_store, args.batch_size, left, right,
+    global_batch = args.batch_size * num_devices
+    tr_batches = FrameBatcher(tr_store, global_batch, left, right,
                               seed=args.seed)
-    cv_batches = FrameBatcher(cv_store, args.batch_size, left, right,
+    cv_batches = FrameBatcher(cv_store, global_batch, left, right,
                               shuffle=False, seed=args.seed)
-    log(f"LOG: #train_batch = {tr_batches.num_batches()}, "
-        f"#valid_batch = {cv_batches.num_batches()}")
+    tr_view = cv_view = None
+    if args.coordinator_address:
+        tr_view = HostShardedFrameBatches(tr_batches, world.rank,
+                                          num_devices)
+        cv_view = HostShardedFrameBatches(cv_batches, world.rank,
+                                          num_devices)
+    log(f"LOG: #train_batch = {(tr_view or tr_batches).num_batches()}, "
+        f"#valid_batch = {(cv_view or cv_batches).num_batches()}")
     # the JAX CLI draws its init example from the train batcher, which
     # takes the first permutation; the port takes it too, so that its
     # epochs see the JAX permutations (SEGAN's init needs the example)
@@ -943,11 +1071,12 @@ def run_frame_training(args) -> int:
     restored, restore_src = restore_state(args, name, state)
     log(f"[*] Load SUCCESS ({restore_src})" if restored
         else "[!] Begin a new model.")
+    replicate_state(state)
     snapper = PeriodicSnapshotter(args.save_dir, name,
                                   args.checkpoint_every_secs)
     log_variables(state)
-    hp = make_hparams(args)
-    g_lr = args.g_learning_rate
+    hp = make_hparams(args, num_devices)
+    g_lr = hp["g_lr"]
     tr_writer = MetricsWriter(args.save_dir, "train", args.tensorboard)
     cv_writer = MetricsWriter(args.save_dir, "eval", args.tensorboard)
     profiler = Profiler(args.profile_dir, device)
@@ -956,9 +1085,16 @@ def run_frame_training(args) -> int:
         return (torch.from_numpy(x).to(device),
                 torch.from_numpy(y).to(device))
 
+    def batches(batcher, view):
+        """This rank's (inputs, labels) of every batch of an epoch."""
+        plans = (view.iter_index_batches() if view is not None else
+                 (shard_batch(world, sel)
+                  for sel in batcher.iter_index_batches()))
+        return (batcher._make_batch(sel) for sel in plans)
+
     def eval_epoch():
         accum = []
-        for x, y in cv_batches:
+        for x, y in batches(cv_batches, cv_view):
             if is_segan:
                 cv_rand = torch.Generator(device=device).manual_seed(0)
                 accum.append(trainer.eval_step(state, *on_device(x, y), hp,
@@ -985,7 +1121,7 @@ def run_frame_training(args) -> int:
             profiler.start()
         start = datetime.datetime.now()
         tr_accum = []
-        for x, y in ThreadedPrefetcher(iter(tr_batches), 32):
+        for x, y in ThreadedPrefetcher(batches(tr_batches, tr_view), 32):
             xy = on_device(x, y)
             if is_segan:
                 tr_accum.append(trainer.train_step(state, *xy, hp, rand))
@@ -1001,7 +1137,7 @@ def run_frame_training(args) -> int:
         train_secs = (datetime.datetime.now() - start).total_seconds()
         cv_m = eval_epoch()
         took = (datetime.datetime.now() - start).total_seconds()
-        frames = len(tr_accum) * args.batch_size
+        frames = len(tr_accum) * global_batch
         fps = frames / max(train_secs, 1e-9)
         log(f"Epoch {epoch + 1} (TRAIN AVG.LOSS): {_fmt(tr_m, metric_keys)},"
             f" learning_rate= {g_lr:.3e}\n"
@@ -1020,8 +1156,7 @@ def run_frame_training(args) -> int:
         g_loss_new = cv_m["g_loss"]
         g_rel_impr = (g_loss_prev - g_loss_new) / g_loss_prev
         if g_loss_new < g_loss_prev:
-            save_checkpoint(args.save_dir, name, state_tree(state),
-                            epoch + 1, meta=ckpt_meta(args))
+            save_state(args, name, state, epoch + 1)
             log(f"Epoch {epoch + 1}: Nnet Accepted. Save model SUCCESS.")
             g_loss_prev = g_loss_new
         else:
@@ -1029,13 +1164,14 @@ def run_frame_training(args) -> int:
             if load_checkpoint(args.save_dir, name, state) is None:
                 log("[!] Load failed. No checkpoint to restore. Exit now.")
                 return 1
+            replicate_state(state)
             snapper.invalidate()
             log("[*] Load previous model SUCCESS.")
 
         if g_rel_impr < args.start_decay_impr and \
                 epoch + 1 >= args.keep_lr:
-            g_lr = staged_decay(args.g_learning_rate, args.decay_factor,
-                                decay_steps)
+            g_lr = staged_decay(args.g_learning_rate * num_devices,
+                                args.decay_factor, decay_steps)
             decay_steps += 1
         if g_rel_impr < args.end_decay_impr:
             if epoch < args.min_epoches:
@@ -1176,22 +1312,84 @@ def apply_flag_aliases(args) -> None:
             setattr(args, canonical, value)
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
+    """The flags (aliases applied) and the unknown ones."""
     args, unparsed = build_parser().parse_known_args(argv)
     apply_flag_aliases(args)
+    return args, unparsed
+
+
+def run(args) -> int:
+    """Decode or train, as the flags say, in this process's world."""
+    if args.decode:
+        return run_decode(args)
+    if args.trainer in SEQUENCE_TRAINERS:
+        return run_sequence_training(args)
+    return run_frame_training(args)   # dnn, gan_dnn, segan
+
+
+def spawned_ranks(args) -> int:
+    """The ranks ``--num_gpu`` spawns: N for training and for a sharded
+    decode (``sharded_decode``), else 1 (JAX decodes over a mesh only
+    there). On a card N may not exceed the cards."""
+    if args.num_gpu <= 1 or args.coordinator_address or (
+            args.decode and not sharded_decode(args)):
+        return 1
+    if resolve_device(args.device).type == "cuda" and \
+            args.num_gpu > torch.cuda.device_count():
+        raise ValueError(f"--num_gpu={args.num_gpu} but only "
+                         f"{torch.cuda.device_count()} CUDA devices")
+    return args.num_gpu
+
+
+def run_rank(rank: int, world: int, address: str, args) -> int:
+    """One rank of a data-parallel world: its device (``cuda:{rank %
+    cards}``, or the CPU), the world joined at ``address``, then
+    ``run``."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    args.device = str(device)
+    set_precision()
+    initialize(address, world, rank, device)
+    try:
+        w = make_world(device)
+        log(f"LOG: data-parallel world of {w.world} ranks over "
+            f"{w.backend} (nccl where each rank has a card of its own, "
+            f"gloo where ranks share one or run on the CPU); rank "
+            f"{w.rank} on {device}, global batch "
+            f"{args.batch_size * w.world}")
+        return run(args)
+    finally:
+        shutdown()
+        make_world(torch.device("cpu"))
+
+
+def _spawned_rank(rank: int, world: int, address: str, argv) -> int:
+    """A rank that ``--num_gpu`` spawned (``parallel.launch``)."""
+    return run_rank(rank, world, address, parse_args(argv)[0])
+
+
+def main(argv=None) -> int:
+    args, unparsed = parse_args(argv)
     set_precision()
     log("*** Parsed arguments ***")
     log(json.dumps(vars(args), indent=1, default=str))
     if unparsed:
         log(f"WARNING: ignoring unknown flags {unparsed}")
     if args.coordinator_address:
-        raise NotImplementedError(
-            f"multi-process runs are not ported yet; {_ROADMAP}, 'Parallel'")
-    if args.decode:
-        return run_decode(args)
-    if args.trainer in SEQUENCE_TRAINERS:
-        return run_sequence_training(args)
-    return run_frame_training(args)   # dnn, gan_dnn, segan
+        if args.num_gpu > 1:
+            log(f"NOTE: --num_gpu={args.num_gpu} ignored in multi-process "
+                f"mode; one rank a process, {args.num_processes} ranks")
+        return run_rank(args.process_id, args.num_processes,
+                        args.coordinator_address, args)
+    ranks = spawned_ranks(args)
+    if ranks > 1:
+        return launch(_spawned_rank, ranks,
+                      args=(sys.argv[1:] if argv is None else list(argv),))
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ from rsrgan_tpu_torch.data.cmvn import (Cmvn, CmvnAccumulator,
                                         cmvn_from_stats,
                                         convert_cmvn_to_numpy, load_cmvn_npz,
                                         read_kaldi_cmvn, write_kaldi_cmvn)
-from rsrgan_tpu_torch.data.dataset import (FrameBatcher, SequenceBatch,
-                                           SequenceBatcher,
+from rsrgan_tpu_torch.data.dataset import (FrameBatcher,
+                                           HostShardedFrameBatches,
+                                           HostShardedSequenceBatches,
+                                           SequenceBatch, SequenceBatcher,
                                            ThreadedPrefetcher, bucket_id,
                                            infer_batches, padded_length)
 from rsrgan_tpu_torch.data.kaldi_ark import (ArkWriter, ScpReader,

@@ -1,16 +1,18 @@
 """Sequence and frame batches (numpy copy of ``rsrgan_tpu/data/dataset.py``:
 ``bucket_id``, ``padded_length``, ``SequenceBatch``, ``SequenceBatcher``,
-``FrameBatcher``, ``infer_batches`` and ``ThreadedPrefetcher``). With the
-same seed a batcher gives the same batches as the JAX package's, in the
-same order. The host-sharded views are not ported (ROADMAP.md, Queue 1,
-'Parallel')."""
+``FrameBatcher``, ``infer_batches``, ``ThreadedPrefetcher`` and the
+host-sharded views ``HostShardedSequenceBatches`` and
+``HostShardedFrameBatches``, which give each process of a multi-process
+run its row block of every full global batch). With the same seed a
+batcher gives the same batches as the JAX package's, in the same
+order."""
 
 from __future__ import annotations
 
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -100,11 +102,22 @@ class SequenceBatcher:
             return sum(c // self.batch_size for c in counts.values())
         return sum(-(-c // self.batch_size) for c in counts.values())
 
-    def _make_batch(self, indices: List[int]) -> SequenceBatch:
+    def plan_t_pad(self, indices: Sequence[int]) -> int:
+        """The padded length of the batch of ``indices``: its longest
+        utterance's bucket edge."""
+        mx = max(int(self._lengths[i]) for i in indices)
+        return padded_length(bucket_id(mx, self.num_buckets), mx,
+                             self.num_buckets)
+
+    def _make_batch(self, indices: Sequence[int],
+                    t_pad: Optional[int] = None) -> SequenceBatch:
+        """The batch of ``indices``, padded to ``t_pad`` (default: their
+        own ``plan_t_pad``; a row block of a global batch takes the global
+        batch's)."""
         lengths = np.array([self._lengths[i] for i in indices],
                            dtype=np.int32)
-        bucket = bucket_id(int(lengths.max()), self.num_buckets)
-        t_pad = padded_length(bucket, int(lengths.max()), self.num_buckets)
+        if t_pad is None:
+            t_pad = self.plan_t_pad(indices)
         splice = self.left_context + 1 + self.right_context
         inputs = np.zeros((len(indices), t_pad,
                            self.store.input_dim * splice), dtype=np.float32)
@@ -200,6 +213,92 @@ class FrameBatcher:
     def __iter__(self):
         for sel in self.iter_index_batches():
             yield self._make_batch(sel)
+
+
+class HostShardedSequenceBatches:
+    """One process's view of a global ``SequenceBatcher`` plan.
+
+    Every process builds the same batcher (same store list and seed) and
+    wraps it with its (process_index, process_count); each then builds
+    only its contiguous row block of every FULL global batch, padded to
+    the global batch's length, so shapes and batch counts are the same
+    on every process and the blocks in process order are the global
+    batch. Ragged global batches are skipped, on every process alike.
+    """
+
+    def __init__(self, batcher: SequenceBatcher, process_index: int,
+                 process_count: int):
+        if batcher.batch_size % process_count:
+            raise ValueError(
+                f"global batch {batcher.batch_size} not divisible by "
+                f"{process_count} processes")
+        self.batcher = batcher
+        self.rows = batcher.batch_size // process_count
+        self.process_index = process_index
+        if self.num_batches() == 0:
+            raise ValueError(
+                "multi-host run would yield ZERO full global batches "
+                f"(batch {batcher.batch_size} over {process_count} "
+                "processes; ragged batches cannot be row-sharded) — "
+                "reduce --batch_size or use a larger corpus")
+
+    def num_batches(self) -> int:
+        """The full global batches of an epoch (ragged ones are skipped)."""
+        counts: Dict[int, int] = {}
+        for length in self.batcher.lengths:
+            k = bucket_id(int(length), self.batcher.num_buckets)
+            counts[k] = counts.get(k, 0) + 1
+        return sum(c // self.batcher.batch_size for c in counts.values())
+
+    def iter_plans(self) -> Iterator[Tuple[List[int], int]]:
+        """(this process's indices, the global batch's padded length) of
+        every full global batch of an epoch."""
+        b = self.batcher
+        lo = self.process_index * self.rows
+        for indices in b.iter_index_batches():
+            if len(indices) != b.batch_size:
+                continue   # ragged: every process skips it
+            yield indices[lo:lo + self.rows], b.plan_t_pad(indices)
+
+    def __iter__(self) -> Iterator[SequenceBatch]:
+        for indices, t_pad in self.iter_plans():
+            yield self.batcher._make_batch(indices, t_pad=t_pad)
+
+
+class HostShardedFrameBatches:
+    """One process's view of a global ``FrameBatcher`` plan (the frame
+    twin of ``HostShardedSequenceBatches``): its row block of every full
+    global batch."""
+
+    def __init__(self, batcher: FrameBatcher, process_index: int,
+                 process_count: int):
+        if batcher.batch_size % process_count:
+            raise ValueError(
+                f"global batch {batcher.batch_size} not divisible by "
+                f"{process_count} processes")
+        self.batcher = batcher
+        self.rows = batcher.batch_size // process_count
+        self.process_index = process_index
+        if self.num_batches() == 0:
+            raise ValueError(
+                "multi-host run would yield ZERO full global batches — "
+                "reduce --batch_size or use a larger corpus")
+
+    def num_batches(self) -> int:
+        """The full global batches of an epoch (the ragged tail is
+        skipped)."""
+        return self.batcher.num_frames // self.batcher.batch_size
+
+    def iter_index_batches(self) -> Iterator[np.ndarray]:
+        """This process's frame indices of every full global batch."""
+        lo = self.process_index * self.rows
+        for sel in self.batcher.iter_index_batches():
+            if len(sel) == self.batcher.batch_size:
+                yield sel[lo:lo + self.rows]
+
+    def __iter__(self):
+        for sel in self.iter_index_batches():
+            yield self.batcher._make_batch(sel)
 
 
 class ThreadedPrefetcher:

@@ -17,6 +17,13 @@ pinned staging buffer and are written in place (``copy_`` into the table's
 rows), so a table's upload peaks at the table plus one chunk; a bfloat16
 table casts each chunk on the device, which rounds to nearest even exactly
 as a host-side float32 -> bfloat16 cast does.
+
+In a ``--num_gpu`` world every rank holds the whole tables on its own
+card (the budget is per card), as JAX replicates them over its mesh, and
+gathers its row block of each global plan (the CLI's ``rank_plans``, the
+counterpart of JAX's ``place_plans``). A rotating feed is seeded alike on
+every rank, so each visits the same shards in the same order.
+Multi-process runs use the host feed, as in JAX.
 """
 
 from __future__ import annotations

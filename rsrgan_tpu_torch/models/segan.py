@@ -30,14 +30,17 @@ from torch import nn
 
 from rsrgan_tpu_torch.ops.common import leakyrelu
 from rsrgan_tpu_torch.ops.modules import Conv1d, ConvTranspose1d, Dense
+from rsrgan_tpu_torch.parallel.mesh import (LocalDraws, current_world,
+                                            global_moments)
 
 DEFAULT_ENC_DEPTHS = (16, 32, 32, 64, 64, 128, 128, 256, 256, 512, 1024)
 DEFAULT_DILATIONS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 
 # Where N(0, 1) numbers come from (the latent z, D's input noise): a
-# generator to draw them from, or a callable returning a tensor of the
-# shape it is given; None means zeros (z) or none (noise).
-NormalSource = Union[torch.Generator,
+# generator to draw them from, this rank's rows of draws at the global
+# batch (``LocalDraws``), or a callable returning a tensor of the shape it
+# is given; None means zeros (z) or none (noise).
+NormalSource = Union[torch.Generator, LocalDraws,
                      Callable[[Tuple[int, ...]], torch.Tensor], None]
 
 
@@ -50,6 +53,8 @@ def draw_normal(source: NormalSource, shape: Tuple[int, ...],
     if isinstance(source, torch.Generator):
         return torch.randn(shape, generator=source, device=source.device
                            ).to(device)
+    if isinstance(source, LocalDraws):
+        return source.randn(shape).to(device)
     out = source(shape)
     if tuple(out.shape) != tuple(shape):
         raise ValueError(f"normals of shape {tuple(out.shape)}, wanted "
@@ -84,7 +89,11 @@ class VirtualBatchNorm(nn.Module):
     them ``1/(B+1)`` with the live batch's, over batch and length:
     ``(x - mean) / sqrt(eps + mean_sq - mean^2) * (1 + gamma) + beta``.
     ``capture`` set (``SeganDiscriminator.init_vbn_stats``), a call first
-    takes the reference statistics from its input, as flax's init does."""
+    takes the reference statistics from its input, as flax's init does.
+    In a data-parallel world the live statistics and the batch size are
+    the global batch's, as under JAX's mesh; the init batch is the whole
+    global batch on every rank, so a capture takes its statistics
+    locally."""
 
     flax_collection = "vbn_stats"
     flax_stats = ("ref_mean", "ref_meansq")
@@ -103,13 +112,19 @@ class VirtualBatchNorm(nn.Module):
         self.register_buffer("ref_meansq", torch.zeros(1, 1, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        batch_mean = x.mean((0, 2))
-        batch_meansq = torch.square(x).mean((0, 2))
+        world = current_world()
+        rows = x.shape[0]
+        if world.world > 1 and not self.capture:
+            batch_mean, batch_meansq = global_moments(x, (0, 2))
+            rows *= world.world
+        else:
+            batch_mean = x.mean((0, 2))
+            batch_meansq = torch.square(x).mean((0, 2))
         if self.capture:
             with torch.no_grad():
                 self.ref_mean.copy_(batch_mean.reshape(1, 1, -1))
                 self.ref_meansq.copy_(batch_meansq.reshape(1, 1, -1))
-        new = 1.0 / (x.shape[0] + 1.0)
+        new = 1.0 / (rows + 1.0)
         old = 1.0 - new
         mean = new * batch_mean + old * self.ref_mean.reshape(-1)
         mean_sq = new * batch_meansq + old * self.ref_meansq.reshape(-1)

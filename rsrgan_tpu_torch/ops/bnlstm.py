@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from rsrgan_tpu_torch.ops.lstm import glorot_uniform_
+from rsrgan_tpu_torch.parallel.mesh import current_world, global_moments
 
 BN_DECAY = 0.999
 BN_EPS = 1e-3
@@ -86,7 +87,12 @@ class BnLstmCell(nn.Module):
 
     def _stats(self, site: str, x: torch.Tensor, train: bool, dim: int = 0):
         """(mean, var) of x over ``dim`` (the batch) in train mode, else
-        the moving statistics."""
+        the moving statistics. In a data-parallel world the train-mode
+        statistics are the global batch's, in two passes as here: the
+        global mean, then the global mean of the squared deviations (two
+        all-reduces a call, as JAX's mesh reduces ``jnp.var``)."""
+        if train and current_world().world > 1:
+            return global_moments(x, (dim,), centred=True)
         if train:
             return x.mean(dim), x.var(dim, correction=0)
         return getattr(self, f"{site}_mean"), getattr(self, f"{site}_var")
@@ -145,7 +151,11 @@ class BnLstmCell(nn.Module):
             if train:
                 step_stats.append((mh, vh, mc, vc))
         if train:
-            self._fold(mask.any(1), mx, vx, step_stats)
+            valid = mask.any(1)
+            world = current_world()
+            if world.world > 1:   # a step any row of the global batch has
+                valid = world.all_reduce_sum_(valid.float()) > 0
+            self._fold(valid, mx, vx, step_stats)
         return torch.stack(outs, dim=1)
 
     @torch.no_grad()

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rsrgan_tpu_torch.ops.lstm import glorot_uniform_
+from rsrgan_tpu_torch.parallel.mesh import global_moments
 
 
 class Dense(nn.Module):
@@ -165,7 +166,9 @@ class BatchNorm(nn.Module):
     in place: ``r = momentum * r + (1 - momentum) * batch``. In eval mode
     it normalises by the running statistics. ``torch.nn.BatchNorm*``
     folds the unbiased variance and reads ``momentum`` as 1 - 0.99, so it
-    is not used."""
+    is not used. In a data-parallel world the batch's statistics are the
+    global batch's (``global_moments``), as under JAX's mesh, and the
+    running statistics come out equal on every rank."""
 
     flax_collection = "batch_stats"
     flax_stats = ("mean", "var")
@@ -186,9 +189,8 @@ class BatchNorm(nn.Module):
         shape[axis] = x.shape[axis]
         if train:
             axes = tuple(i for i in range(x.ndim) if i != axis)
-            mean = x.mean(axes)
-            var = torch.clamp(torch.square(x).mean(axes)
-                              - torch.square(mean), min=0.0)
+            mean, mean_sq = global_moments(x, axes)
+            var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -34,6 +34,13 @@ and cannot run one.
 batch on the device from resident tables and a ``[B]`` plan
 (``ops/gather.py``). State is updated in place (the JAX step returns a
 new state).
+
+In a data-parallel world (``parallel``) each rank steps on its rows of
+the global batch: every update's gradients and metrics are averaged over
+the world before the clip (``world_mean``), eval metrics too, and D's
+noise and the dropout masks are this rank's rows of the draws at the
+global batch (``local_draws``; D's 2B rows are two blocks, real and
+fake).
 """
 
 from __future__ import annotations
@@ -46,10 +53,12 @@ from torch import nn
 from rsrgan_tpu_torch.models.bridge import batch_stats_tree
 from rsrgan_tpu_torch.ops.common import MaskSource
 from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
+from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
+                                            local_draws)
 from rsrgan_tpu_torch.training.losses import (g_mse_loss, l2_loss_nonbias,
                                               lsgan_d_losses,
                                               lsgan_g_adv_loss)
-from rsrgan_tpu_torch.training.state import NetState
+from rsrgan_tpu_torch.training.state import NetState, world_mean
 
 
 def default_hparams() -> Dict[str, float]:
@@ -118,17 +127,19 @@ class GanTrainer:
         self.d_masks = torch.Generator(device=device).manual_seed(seed + 1)
 
     def _g(self, inputs, lengths, train: bool):
-        masks = self.g_masks if train else None
+        masks = local_draws(self.g_masks) if train else None
         if self.frame_mode:
             return self.generator(inputs, train=train, masks=masks)
         return self.generator(inputs, lengths, train, masks=masks)
 
-    def _d(self, x, lengths, hp, train: bool, noise):
-        masks = self.d_masks if train else None
+    def _d(self, x, lengths, hp, train: bool, noise, parts: int = 1):
+        """D on ``x``; ``parts``: the blocks of rows x stacks (2: real and
+        fake), which the global batch's draws keep apart."""
+        masks = local_draws(self.d_masks, parts) if train else None
         if self.frame_mode:
             return self.discriminator(x, train, masks)
         return self.discriminator(x, lengths, hp["disc_noise_std"], train,
-                                  noise, masks)
+                                  local_draws(noise, parts), masks)
 
     def init_state(self) -> GanState:
         return GanState(
@@ -159,7 +170,7 @@ class GanTrainer:
         lengths2 = (torch.cat([lengths, lengths], dim=0)
                     if lengths is not None else None)
         d_both = self._d(self._d_input(inputs2, both), lengths2, hp, train,
-                         noise)
+                         noise, parts=2)
         d_rl, d_fk = d_both[:b], d_both[b:]
         d_rl_loss, d_fk_loss, d_loss = lsgan_d_losses(
             d_rl, d_fk, hp["d_real"], hp["d_fake"])
@@ -180,16 +191,21 @@ class GanTrainer:
         adv, mse = self._g_head(g_out, inputs, labels, lengths, hp, noise)
         l2 = l2_loss_nonbias(state.g.params(), self.l2_scale)
         g_loss = adv + hp["mse_lambda"] * mse + l2
-        self._update("g", state.g, self._grads(g_loss, state.g), hp["g_lr"])
-        return {"g_adv_loss": adv.detach(), "g_mse_loss": mse.detach(),
-                "g_l2_loss": l2.detach(), "g_loss": g_loss.detach()}
+        grads, metrics = world_mean(
+            self._grads(g_loss, state.g),
+            {"g_adv_loss": adv.detach(), "g_mse_loss": mse.detach(),
+             "g_l2_loss": l2.detach(), "g_loss": g_loss.detach()})
+        self._update("g", state.g, grads, hp["g_lr"])
+        return metrics
 
     def _d_update(self, state: GanState, fake, inputs, labels, lengths, hp,
                   noise) -> Dict[str, torch.Tensor]:
         """One D update against a detached G output."""
         d_loss, m, _ = self._d_loss(fake, inputs, labels, lengths, hp, noise)
-        self._update("d", state.d, self._grads(d_loss, state.d), hp["d_lr"])
-        return {k: v.detach() for k, v in m.items()}
+        grads, metrics = world_mean(self._grads(d_loss, state.d),
+                                    {k: v.detach() for k, v in m.items()})
+        self._update("d", state.d, grads, hp["d_lr"])
+        return metrics
 
     def _grads(self, loss, net: NetState) -> Dict[str, torch.Tensor]:
         params = net.params()
@@ -278,9 +294,10 @@ class GanTrainer:
                                     noise, train=False)
         adv = lsgan_g_adv_loss(d_fk, hp["d_real"])
         mse = g_mse_loss(g_out, labels, self.output_dim)
-        return {**d_m, "g_adv_loss": adv, "g_mse_loss": mse,
-                "g_l2_loss": torch.zeros((), device=adv.device),
-                "g_loss": adv + hp["mse_lambda"] * mse}
+        return all_reduce_mean(current_world(), {
+            **d_m, "g_adv_loss": adv, "g_mse_loss": mse,
+            "g_l2_loss": torch.zeros((), device=adv.device),
+            "g_loss": adv + hp["mse_lambda"] * mse})
 
     def train_step_gathered(self, state: GanState, inputs_tbl, labels_tbl,
                             starts, lengths, hp: Dict[str, float],

@@ -18,6 +18,12 @@ scans are not ported (they amortised jit dispatch), nor is
 ``infer_with_params``, which nothing in the JAX package calls: the port's
 modules hold their weights, so a tree is loaded (``load_flax_params``,
 ``load_batch_stats``) and ``infer_step`` runs it.
+
+In a data-parallel world (``parallel``) each rank steps on its rows of
+the global batch: the gradients and metrics are averaged over the world
+before the clip, eval metrics too, the dropout masks are this rank's rows
+of the draws at the global batch, and G's batch statistics are the
+global batch's.
 """
 
 from __future__ import annotations
@@ -29,8 +35,10 @@ from torch import nn
 
 from rsrgan_tpu_torch.ops.common import MaskSource
 from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
+from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
+                                            local_draws)
 from rsrgan_tpu_torch.training.losses import g_mse_loss, l2_loss_nonbias
-from rsrgan_tpu_torch.training.state import NetState
+from rsrgan_tpu_torch.training.state import NetState, world_mean
 
 
 class MseState:
@@ -74,7 +82,7 @@ class MseTrainer:
                                  self.max_grad_norm))
 
     def _g(self, inputs, lengths, train: bool) -> torch.Tensor:
-        masks = self.masks if train else None
+        masks = local_draws(self.masks) if train else None
         if self.sequence_mode:
             return self.generator(inputs, lengths, train, masks=masks)
         return self.generator(inputs, train=train, masks=masks)
@@ -89,15 +97,17 @@ class MseTrainer:
         l2 = l2_loss_nonbias(params, self.l2_scale)
         loss = mse + l2
         names = list(params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[n] for n in names])))
+        grads, metrics = world_mean(
+            dict(zip(names, torch.autograd.grad(
+                loss, [params[n] for n in names]))),
+            {"g_mse_loss": mse.detach(), "g_l2_loss": l2.detach(),
+             "g_loss": loss.detach()})
         if self.grad_log is not None:
             self.grad_log.append({k: g.detach().clone()
                                   for k, g in grads.items()})
         state.net.apply_gradients(grads, lr, self.ema_decay)
         state.step += 1
-        return {"g_mse_loss": mse.detach(), "g_l2_loss": l2.detach(),
-                "g_loss": loss.detach()}
+        return metrics
 
     @torch.no_grad()
     def eval_step(self, state: MseState, inputs, labels,
@@ -106,9 +116,10 @@ class MseTrainer:
         statistics); no L2, no update."""
         mse = g_mse_loss(self._g(inputs, lengths, False), labels,
                          self.output_dim)
-        return {"g_mse_loss": mse,
-                "g_l2_loss": torch.zeros((), device=mse.device),
-                "g_loss": mse}
+        return all_reduce_mean(current_world(), {
+            "g_mse_loss": mse,
+            "g_l2_loss": torch.zeros((), device=mse.device),
+            "g_loss": mse})
 
     @torch.no_grad()
     def infer_step(self, state: MseState, inputs,

@@ -19,6 +19,12 @@ noise; per G step z, the fake row's noise. ``eval_step`` draws z, the
 real and fake noise of D's losses, and the noise of one more D call on
 the fake rows for G's adversarial loss. ``infer_step`` runs G with z = 0,
 as JAX without a ``z`` rng does. State is updated in place.
+
+In a data-parallel world (``parallel``) each rank steps on its rows of
+the global batch: z and D's noise are this rank's rows of the draws at
+the global batch, VBN's live statistics are the global batch's, and each
+update's gradients and metrics are averaged over the world (eval
+metrics too).
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ from torch import nn
 
 from rsrgan_tpu_torch.models.segan import NormalSource, draw_normal
 from rsrgan_tpu_torch.ops.common import gaussian_noise
+from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
+                                            local_draws)
 from rsrgan_tpu_torch.training.gan import GanState
 from rsrgan_tpu_torch.training.losses import lsgan_d_losses, lsgan_g_adv_loss
-from rsrgan_tpu_torch.training.state import NetState
+from rsrgan_tpu_torch.training.state import NetState, world_mean
 
 
 class SeganTrainer:
@@ -65,7 +73,8 @@ class SeganTrainer:
 
     def _d(self, inputs, target, hp, rand: NormalSource) -> torch.Tensor:
         joint = torch.cat([inputs, target], dim=-1)
-        noise = draw_normal(rand, tuple(joint.shape), joint.device)
+        noise = draw_normal(local_draws(rand), tuple(joint.shape),
+                            joint.device)
         return self.discriminator(gaussian_noise(joint, hp["disc_noise_std"],
                                                  noise))
 
@@ -82,15 +91,21 @@ class SeganTrainer:
         return adv + l1, {"g_adv_loss": adv, "g_l1_loss": l1,
                           "g_loss": adv + l1}
 
-    def _update(self, tag: str, net: NetState, loss, lr: float) -> None:
+    def _update(self, tag: str, net: NetState, loss, metrics, lr: float
+                ) -> Dict[str, torch.Tensor]:
+        """One update of ``net`` from ``loss``; returns ``metrics``
+        averaged over the data world with the gradients."""
         params = net.params()
         names = list(params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[n] for n in names])))
+        grads, metrics = world_mean(
+            dict(zip(names, torch.autograd.grad(
+                loss, [params[n] for n in names]))),
+            {k: v.detach() for k, v in metrics.items()})
         if self.grad_log is not None:
             self.grad_log.append((tag, {k: g.detach().clone()
                                         for k, g in grads.items()}))
         net.apply_gradients(grads, lr, self.ema_decay)
+        return metrics
 
     def train_step(self, state: GanState, inputs, labels,
                    hp: Dict[str, float], rand: NormalSource
@@ -100,19 +115,18 @@ class SeganTrainer:
         metrics: Dict[str, torch.Tensor] = {}
         for _ in range(self.disc_updates):
             with torch.no_grad():
-                g_out = self.generator(inputs, rand)
+                g_out = self.generator(inputs, local_draws(rand))
             d_loss, m = self._d_losses(g_out, inputs, labels, hp, rand)
-            self._update("d", state.d, d_loss, hp["d_lr"])
+            m = self._update("d", state.d, d_loss, m, hp["d_lr"])
             for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach() \
-                    / self.disc_updates
+                metrics[k] = metrics.get(k, 0.0) + v / self.disc_updates
         for _ in range(self.gen_updates):
-            g_loss, m = self._g_losses(self.generator(inputs, rand), inputs,
-                                       labels, hp, rand)
-            self._update("g", state.g, g_loss, hp["g_lr"])
+            g_loss, m = self._g_losses(
+                self.generator(inputs, local_draws(rand)), inputs, labels,
+                hp, rand)
+            m = self._update("g", state.g, g_loss, m, hp["g_lr"])
             for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v.detach() \
-                    / self.gen_updates
+                metrics[k] = metrics.get(k, 0.0) + v / self.gen_updates
         state.step += 1
         return metrics
 
@@ -121,10 +135,10 @@ class SeganTrainer:
                   hp: Dict[str, float], rand: NormalSource
                   ) -> Dict[str, torch.Tensor]:
         """Every loss with z and noise drawn, no update."""
-        g_out = self.generator(inputs, rand)
+        g_out = self.generator(inputs, local_draws(rand))
         _, d_m = self._d_losses(g_out, inputs, labels, hp, rand)
         _, g_m = self._g_losses(g_out, inputs, labels, hp, rand)
-        return {**d_m, **g_m}
+        return all_reduce_mean(current_world(), {**d_m, **g_m})
 
     @torch.no_grad()
     def infer_step(self, state: GanState, inputs) -> torch.Tensor:

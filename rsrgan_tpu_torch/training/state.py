@@ -26,6 +26,7 @@ from torch import nn
 
 from rsrgan_tpu_torch.models.bridge import (collections_tree,
                                             load_collections)
+from rsrgan_tpu_torch.parallel.mesh import all_reduce_mean, current_world
 
 Tree = Dict[str, torch.Tensor]
 
@@ -104,6 +105,18 @@ class RmsProp:
         return updates
 
 
+def world_mean(grads: Tree, metrics: Tree) -> tuple:
+    """An update's gradients and metrics averaged over the data world, in
+    one all-reduce (the identity in one process): the gradient and the
+    losses of the global batch, as JAX's mesh psums them. It comes before
+    the per-tensor clip, which then clips the global gradient."""
+    tree = {**{"grad/" + k: v for k, v in grads.items()},
+            **{"metric/" + k: v for k, v in metrics.items()}}
+    tree = all_reduce_mean(current_world(), tree)
+    return ({k: tree["grad/" + k] for k in grads},
+            {k: tree["metric/" + k] for k in metrics})
+
+
 def make_optimizer(name: str):
     if name == "adam":
         return Adam()
@@ -138,6 +151,22 @@ class NetState:
         ``batch_stats`` in place; the EMA and the optimizer never see
         them."""
         return collections_tree(self.module)
+
+    def tensors(self) -> list:
+        """Every tensor of the state, in a fixed order: parameters,
+        buffers (the mutable collections), the EMA shadow and the
+        optimizer's state (``parallel.replicate`` sends them from rank
+        0)."""
+        out = list(self.module.parameters()) + list(self.module.buffers())
+        out += list(self.ema.values())
+        stack = [self.opt_state]
+        while stack:
+            for v in stack.pop().values():
+                if isinstance(v, dict):
+                    stack.append(v)
+                else:
+                    out.append(v)
+        return out
 
     def load_extra(self, extra: Optional[dict]) -> None:
         """Copy a JAX ``NetState.extra`` tree into the module's buffers;

@@ -21,8 +21,8 @@ corpus, and must take the same decisions epoch by epoch.
   the port, the port's by the JAX CLI, each against the other package's
   decode of the same checkpoint, to 1e-5.
 * The CLI turns TF32 off itself; ``--trainer=gan_dnn --batch_norm``
-  (which the JAX package cannot run) and ``--trainer=segan --num_gpu=2``
-  raise.
+  (which the JAX package cannot run) raises; ``--trainer=segan
+  --num_gpu=2`` trains over two ranks.
 """
 
 import json
@@ -325,10 +325,23 @@ def test_cli_turns_tf32_off(corpus, trained, tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra,error,match", [
     (["--trainer=gan_dnn", "--batch_norm=true"], ValueError,
      "batch_stats"),
-    (["--trainer=segan", "--num_gpu=2"], NotImplementedError, "Parallel"),
+    pytest.param(["--trainer=segan", "--num_gpu=2"], None, "Parallel",
+                 id="extra1-NotImplementedError-Parallel"),
 ])
 def test_unrunnable_frame_flags_raise(corpus, tmp_path, extra, error,
                                       match):
+    """--trainer=gan_dnn --batch_norm raises as the JAX package fails.
+    --trainer=segan --num_gpu=2 raised NotImplementedError naming
+    ROADMAP.md's item 'Parallel' (hence the name and the case's id) until
+    that item was ported: the case now checks that it trains one epoch
+    over two gloo ranks (a shallow G) and that rank 0 alone writes the
+    metrics row."""
+    save_dir = str(tmp_path / "x")
+    argv = flags(corpus, save_dir, "dnn", "--device=cpu", *extra)
+    if error is None:
+        assert port_train.main(argv + ["--g_enc_depths=4,8",
+                                       "--max_epoches=1"]) == 0
+        assert len(rows(save_dir, "train")) == 1
+        return
     with pytest.raises(error, match=match):
-        port_train.main(flags(corpus, str(tmp_path / "x"), "dnn",
-                              "--device=cpu", *extra))
+        port_train.main(argv)
