@@ -34,15 +34,18 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import io
 import json
 import os
 import shutil
 import sys
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+from rsrgan_tpu_torch.tools.recipe_stages import (StageTimer, call,
+                                                  filter_scp,
+                                                  prepare_stores,
+                                                  read_jsonl, score_summary)
 
 ASSET_SEED = {"mfcc": 11, "lps": 23}
 SAVE_NAME = {"mfcc": "gan_res_lstm_l", "lps": "gan_lps2lps"}
@@ -116,41 +119,6 @@ def read_feats(scp: str) -> Dict[str, np.ndarray]:
     return {u: np.asarray(m) for u, m in ScpReader(scp)}
 
 
-def read_jsonl(path: str) -> List[dict]:
-    with open(path) as f:
-        return [json.loads(line) for line in f if line.strip()]
-
-
-def filter_scp(keys_scp: str, scp: str, out: str) -> None:
-    """Lines of ``scp`` whose utterance is in ``keys_scp``, in ``scp``'s
-    order (the recipe's awk filter)."""
-    with open(keys_scp) as f:
-        keep = {line.split()[0] for line in f if line.strip()}
-    with open(scp) as f, open(out, "w") as g:
-        for line in f:
-            if line.strip() and line.split()[0] in keep:
-                g.write(line)
-
-
-def call(main: Callable, argv: List[str], stage: str) -> None:
-    rc = main(argv)
-    if rc != 0:
-        raise RuntimeError(f"stage {stage}: {argv[:2]} returned {rc}")
-
-
-def score_summary(argv: List[str]) -> dict:
-    """One ``cli.score`` call; its output passes through, and its last
-    line, the summary JSON, is returned."""
-    from rsrgan_tpu_torch.cli import score
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = score.main(argv)
-    sys.stdout.write(buf.getvalue())
-    if rc != 0:
-        raise RuntimeError(f"stage score: {argv[:2]} returned {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
-
-
 def run_chain(target: str, workdir: str, epochs: int = 20,
               num_utts: int = 96, val_size: int = 12,
               device: str = "cuda", assets: Optional[dict] = None,
@@ -163,7 +131,7 @@ def run_chain(target: str, workdir: str, epochs: int = 20,
     and ``decode_flags`` replace the recipes' stage 4 and 5 flags (the
     CPU-sized chain of the tests); ``stage_context(name)`` wraps each
     stage (chip_smoke.py counts kernel launches in it)."""
-    from rsrgan_tpu_torch.cli import extract, prepare, resynth, simulate
+    from rsrgan_tpu_torch.cli import extract, resynth, simulate
     from rsrgan_tpu_torch.cli import train
     from rsrgan_tpu_torch.sim import make_sim_assets
 
@@ -176,15 +144,8 @@ def run_chain(target: str, workdir: str, epochs: int = 20,
     train_dir = os.path.join(workdir, "data", "train")
     save_dir = os.path.join(workdir, "exp", SAVE_NAME[target])
     os.makedirs(train_dir)
-    secs: Dict[str, float] = {}
-    t_chain = time.monotonic()
-
-    @contextlib.contextmanager
-    def stage(name):
-        t0 = time.monotonic()
-        with stage_context(name):
-            yield
-        secs[name] = time.monotonic() - t0
+    timer = StageTimer(stage_context)
+    stage, secs = timer.stage, timer.secs
 
     with stage("assets"):
         kw = dict(min_dur_s=1.2, max_dur_s=3.0, seed=ASSET_SEED[target])
@@ -222,29 +183,7 @@ def run_chain(target: str, workdir: str, epochs: int = 20,
             len(m) for m in read_feats(f"{out_dir}/{out_name}.scp").values())
 
     with stage("prepare"):
-        call(prepare.main, ["cmvn", f"--inputs={train_dir}/inputs.cmvn",
-                            f"--labels={train_dir}/labels.cmvn",
-                            f"--save_dir={train_dir}"], "prepare")
-        call(prepare.main, ["split", f"--val_size={val_size}",
-                            f"--data_dir={train_dir}", "--seed=1"],
-             "prepare")
-        stores = f"{train_dir}/stores"
-        os.makedirs(stores)
-        for sub in ("tr", "cv"):
-            call(prepare.main, [
-                "make-store", f"--inputs={train_dir}/{sub}/inputs.scp",
-                f"--labels={train_dir}/{sub}/labels.scp",
-                f"--cmvn_dir={train_dir}", f"--output_dir={stores}",
-                f"--name={sub}"], "prepare")
-            with open(f"{train_dir}/{sub}.list", "w") as f:
-                f.write(f"{stores}/{sub}.rtu\n")
-        call(prepare.main, ["make-store", "--test",
-                            f"--inputs={train_dir}/cv/inputs.scp",
-                            f"--cmvn_dir={train_dir}",
-                            f"--output_dir={stores}", "--name=test"],
-             "prepare")
-        with open(f"{train_dir}/test.list", "w") as f:
-            f.write(f"{stores}/test.rtu\n")
+        prepare_stores(train_dir, val_size, "prepare")
 
     with stage("train"):
         call(train.main, (train_flags or recipe_train_flags(
@@ -299,7 +238,7 @@ def run_chain(target: str, workdir: str, epochs: int = 20,
         gate = lsd_gate(read_jsonl(f"{workdir}/score_noisy_feats.jsonl"),
                         read_jsonl(f"{workdir}/score_enh_feats.jsonl"))
     result.update(gate=gate, passed=gate["passed"], stage_seconds=secs,
-                  seconds=time.monotonic() - t_chain)
+                  seconds=timer.seconds())
     return result
 
 
