@@ -2341,38 +2341,43 @@ PAR_ONE_LAUNCHES = {"wavefront_fwd_train": 2, "lstm_fwd": 6,
                     "lstm_bwd": 12, "lstm_bwd_acc": 2}
 PROCESS_TIMEOUT = 300
 PAR_KERNELS = ("wavefront_fwd_train", "wavefront_fwd", "lstm_fwd",
-               "lstm_bwd")
+               "lstm_bwd", "lstm_bwd_acc")
 # a process of the training CLI with its launches counted
 COUNTED_CLI = ("import sys, chip_smoke; "
                "sys.exit(chip_smoke.counted_train_cli(sys.argv[1], "
                "sys.argv[2:]))")
 
 
-def flagship_step(x, y, lens, timed_steps: int) -> dict:
-    """The flagship step (res_lstm_l G, LSTM-D, full width, f32, noise std
-    0) on the kernels, on this process's rows of (x, y, lens), in its data
-    world: seeded weights replicated from rank 0; the gradients of the 3
-    updates and the params after the step (on the host), the step's
-    launches in total and by shape (counts set to 0 just before it), then
+def flagship_step(x, y, lens, timed_steps: int,
+                  tensor_parallel: bool = False, dtype=None) -> dict:
+    """The flagship step (res_lstm_l G, LSTM-D, full width, f32 unless
+    ``dtype``, noise std 0) on the kernels, on this process's rows of (x,
+    y, lens), in its world: seeded weights placed by ``shard_state``
+    (replicated from rank 0; with ``tensor_parallel`` each rank keeps its
+    model block of the cells' EMA and Adam moments); the metrics, the
+    gradients of the 3 updates and the params after the step (on the
+    host), the step's launches in total and by shape (counts set to 0
+    just before it), the bytes of each net's EMA and optimizer moments
+    and whether each sharded leaf's hold 1/m of its elements, then
     ``timed_steps`` more steps timed with the share of wall time spent
     inside collectives."""
     import torch
     from rsrgan_tpu_torch.models import get_discriminator, get_generator
-    from rsrgan_tpu_torch.parallel import (current_world, replicate,
-                                           shard_batch)
+    from rsrgan_tpu_torch.parallel import (current_world, shard_batch,
+                                           shard_state)
     from rsrgan_tpu_torch.training import GanTrainer, default_hparams
     world = current_world()
     device = world.device
+    cdt = torch.float32 if dtype is None else dtype
     gen = torch.Generator().manual_seed(21)
     g = get_generator("res_lstm_l", input_dim=P, output_dim=OUT,
-                      compute_dtype=torch.float32, lstm_impl="wavefront",
+                      compute_dtype=cdt, lstm_impl="wavefront",
                       generator=gen).to(device)
-    d = get_discriminator("lstm", compute_dtype=torch.float32,
+    d = get_discriminator("lstm", compute_dtype=cdt,
                           lstm_impl="wavefront", generator=gen).to(device)
     trainer = GanTrainer(g, d, output_dim=OUT, input_dim=P, l2_scale=1e-5)
-    state = trainer.init_state()
-    for net in (state.g, state.d):
-        replicate(world, net.tensors())
+    state = shard_state(world, trainer.init_state(),
+                        tensor_parallel=tensor_parallel)
     x, y, lens = (torch.from_numpy(a).to(device)
                   for a in shard_batch(world, (x, y, lens)))
     hp = dict(default_hparams(), disc_noise_std=0.0)
@@ -2380,26 +2385,41 @@ def flagship_step(x, y, lens, timed_steps: int) -> dict:
     trainer.grad_log = []
     torch.cuda.synchronize(device)
     reset_counts(counters)
-    trainer.train_step(state, x, y, lens, hp)
+    metrics = trainer.train_step(state, x, y, lens, hp)
     torch.cuda.synchronize(device)
     launches = read_counts(counters)
-    out = {"grads": [(tag, {k: v.cpu() for k, v in gr.items()})
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": [(tag, {k: v.cpu() for k, v in gr.items()})
                      for tag, gr in trainer.grad_log],
            "params": {net: {k: v.detach().cpu() for k, v in
                             getattr(state, net).params().items()}
                       for net in ("g", "d")},
            "launches": {k: launches[k] for k in PAR_RANK_LAUNCHES},
-           "by_shape": by_shape(launches)}
+           "by_shape": by_shape(launches), "state_bytes": {},
+           "sharded_leaves": {}, "blocks_ok": True}
+    for net in ("g", "d"):
+        ns = getattr(state, net)
+        kept = [ns.ema] + [ns.opt_state[f] for f in ("mu", "nu")
+                           if f in ns.opt_state]
+        out["state_bytes"][net] = sum(t.numel() * t.element_size()
+                                      for tree in kept
+                                      for t in tree.values())
+        out["sharded_leaves"][net] = len(ns.shards)
+        out["blocks_ok"] &= all(
+            tree[k].numel() * world.model == p.numel()
+            for k, p in ns.params().items() if k in ns.shards
+            for tree in kept)
     trainer.grad_log = None
-    world.timed, world.collective_secs = True, 0.0
-    t0 = time.perf_counter()
-    for _ in range(timed_steps):
-        trainer.train_step(state, x, y, lens, hp)
-    torch.cuda.synchronize(device)
-    secs = time.perf_counter() - t0
-    world.timed = False
-    out["ms_per_step"] = 1e3 * secs / timed_steps
-    out["collective_share"] = world.collective_secs / secs
+    if timed_steps:
+        world.timed, world.collective_secs = True, 0.0
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            trainer.train_step(state, x, y, lens, hp)
+        torch.cuda.synchronize(device)
+        secs = time.perf_counter() - t0
+        world.timed = False
+        out["ms_per_step"] = 1e3 * secs / timed_steps
+        out["collective_share"] = world.collective_secs / secs
     return out
 
 
@@ -2448,7 +2468,8 @@ def parallel_library_step(tr_list: str, work: str, ranks: int,
     post-step params gated at GRAD_TOL (max |diff| / max |ref| per
     tensor), G's post-step params reported only (Adam's first step:
     update = g / (|g| + eps)); each rank's launches against the
-    local-row routes, and by shape."""
+    local-row routes, and by shape. Returns (that summary, the
+    one-process step, rank 0's step)."""
     import torch
     from rsrgan_tpu_torch.data import (SequenceBatcher, UtteranceStore,
                                        read_list_file)
@@ -2500,7 +2521,7 @@ def parallel_library_step(tr_list: str, work: str, ranks: int,
             "launch_seconds": secs,
             "ok": (len(grad_errs) == 3
                    and all(e <= GRAD_TOL for e in grad_errs.values())
-                   and post["d"] <= GRAD_TOL and routes_ok)}
+                   and post["d"] <= GRAD_TOL and routes_ok)}, ref, got
 
 
 def counted_train_cli(counts_path: str, argv: list) -> int:
@@ -2681,6 +2702,197 @@ def parallel_cli(prepared: dict, work: str) -> dict:
                    and decode_err <= DECODE_TOL_F32)}
 
 
+# (e) Tensor parallelism (JAX's model axis: make_world(model_parallel=2),
+# shard_state(tensor_parallel=True)) on the first card over gloo, the
+# library's f32 flagship step on (a)'s 16-row batch: "e1" two ranks, data
+# 1 x model 2, each on all 16 rows, against (a)'s one-process step; "e2"
+# four ranks, data 2 x model 2 (JAX's 8-device (4, 2) test on one card),
+# 8 rows a data rank, against (a)'s data-parallel rank 0. Each rank's
+# launches (in total and by shape) must be those of the step it is held
+# against; then one bf16 step on e1's ranks, whose losses must be finite
+# on the same routes.
+TP_WORLDS = {"e1": (2, 2), "e2": (4, 2)}   # (ranks, model_parallel)
+
+
+def _tp_rank(rank: int, world: int, address: str, work: str,
+             model_parallel: int) -> int:
+    """One rank of (e): ``flagship_step`` with the state sharded over the
+    model axis, timed; with ``model_parallel`` == world (data 1) also the
+    bf16 step; rank 0 saves its gradients and params, every rank its
+    launches, state bytes, times and layout."""
+    import torch
+    from rsrgan_tpu_torch.parallel import initialize, make_world, shutdown
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    initialize(address, world, rank, device)
+    try:
+        w = make_world(device, model_parallel)
+        batch = np.load(os.path.join(os.path.dirname(work),
+                                     "parallel_batch.npz"))
+        args = (batch["x"], batch["y"], batch["lens"])
+        out = flagship_step(*args, PAR_TIMED_STEPS, tensor_parallel=True)
+        info = {k: out[k] for k in ("launches", "by_shape", "state_bytes",
+                                    "sharded_leaves", "blocks_ok",
+                                    "ms_per_step", "collective_share")}
+        info.update(backend=w.backend, layout=[w.data_rank, w.data_size,
+                                               w.model_rank, w.model])
+        if rank == 0:
+            torch.save({k: out[k] for k in ("grads", "params")},
+                       os.path.join(work, "tp_rank0.pt"))
+        if w.data_size == 1:
+            del out
+            torch.cuda.empty_cache()
+            bf = flagship_step(*args, 0, tensor_parallel=True,
+                               dtype=torch.bfloat16)
+            info["bf16"] = {"metrics": bf["metrics"],
+                            "launches": bf["launches"]}
+        with open(os.path.join(work, f"tp_rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+        return 0
+    finally:
+        shutdown()
+
+
+def bit_equal(a: dict, b: dict) -> bool:
+    """Every gradient of the 3 updates and every post-step param the
+    same bits in two steps' results."""
+    return (all(torch_equal(x[1], y[1]) for x, y in zip(a["grads"],
+                                                         b["grads"]))
+            and all(torch_equal(a["params"][n], b["params"][n])
+                    for n in ("g", "d")))
+
+
+def torch_equal(a: dict, b: dict) -> bool:
+    import torch
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def parallel_tp(work: str, lib: dict, ref: dict, got: dict,
+                card: str) -> dict:
+    """(e) Each world of TP_WORLDS on the first card, against the step
+    it mirrors: the 3 updates' gradients and G's and D's post-step params
+    gated at GRAD_TOL (max |diff| / max |ref| per tensor), whether they
+    are bit-equal, each rank's launches against the mirrored step's in
+    total and by shape; each rank's bytes of EMA and moments (and the
+    one-process state's), ms per step and share in collectives; on e1
+    the bf16 step's losses finite on the same routes. Emits one line a
+    world."""
+    import torch
+    from rsrgan_tpu_torch.parallel import launch
+    out = {}
+    want = {"e1": (ref, PAR_ONE_LAUNCHES, ref["by_shape"]),
+            "e2": (got, PAR_RANK_LAUNCHES, lib["by_shape_per_rank"][0])}
+    for tag, (ranks, m) in TP_WORLDS.items():
+        d = os.path.join(work, "parallel", f"tp_{tag}")
+        os.makedirs(d, exist_ok=True)
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        rc = launch(_tp_rank, ranks, args=(d, m), timeout=PROCESS_TIMEOUT)
+        secs = time.monotonic() - t0
+        if rc != 0:
+            raise RuntimeError(f"a rank of the TP step {tag} exited {rc}")
+        step = torch.load(os.path.join(d, "tp_rank0.pt"))
+        per_rank = []
+        for r in range(ranks):
+            with open(os.path.join(d, f"tp_rank{r}.json")) as f:
+                per_rank.append(json.load(f))
+        base, launches, shapes = want[tag]
+        names = ("d_step", "g_step_1", "g_step_2")
+        grad_errs = {n: max(rel_errs(a[1], b[1]).values())
+                     for n, a, b in zip(names, step["grads"], base["grads"])}
+        post = {net: max(rel_errs(step["params"][net],
+                                  base["params"][net]).values())
+                for net in ("g", "d")}
+        routes_ok = all(r["launches"] == launches and r["by_shape"] == shapes
+                        for r in per_rank)
+        bf16 = [r["bf16"] for r in per_rank if "bf16" in r]
+        bf16_ok = (tag != "e1" or (
+            len(bf16) == ranks
+            and all(b["launches"] == launches
+                    and all(np.isfinite(v) for v in b["metrics"].values())
+                    for b in bf16)))
+        res = {"phase": "parallel_tp", "world": tag, "ranks": ranks,
+               "data": ranks // m, "model": m,
+               "rows_per_data_rank": 16 // (ranks // m),
+               "held_against": ("(a)'s one-process step at 16 rows"
+                                if tag == "e1" else
+                                "(a)'s data-parallel rank 0 (world 2)"),
+               "grad_rel_err": grad_errs, "post_step_param_rel_err": post,
+               "tol": GRAD_TOL, "bit_equal": bit_equal(step, base),
+               "launches_per_rank": [r["launches"] for r in per_rank],
+               "by_shape_per_rank": [r["by_shape"] for r in per_rank],
+               "routes_ok": routes_ok,
+               "layouts": [r["layout"] for r in per_rank],
+               "backend": per_rank[0]["backend"],
+               "sharded_leaves": per_rank[0]["sharded_leaves"],
+               "state_bytes_per_rank": [r["state_bytes"] for r in per_rank],
+               "state_bytes_one_process": ref["state_bytes"],
+               "blocks_ok": all(r["blocks_ok"] for r in per_rank),
+               "ms_per_step_ranks": [r["ms_per_step"] for r in per_rank],
+               "collective_share_ranks": [r["collective_share"]
+                                          for r in per_rank],
+               "ms_per_step_one_process": ref["ms_per_step"],
+               "bf16_losses": [b["metrics"] for b in bf16],
+               "bf16_launches": [b["launches"] for b in bf16],
+               "bf16_ok": bf16_ok, "launch_seconds": secs,
+               "name, power.limit": card}
+        res["ok"] = (len(grad_errs) == 3
+                     and all(e <= GRAD_TOL for e in grad_errs.values())
+                     and all(e <= GRAD_TOL for e in post.values())
+                     and routes_ok and bf16_ok and res["blocks_ok"]
+                     and res["backend"] == "gloo"
+                     and res["sharded_leaves"] == {"g": 12, "d": 6})
+        emit(res)
+        out[tag] = res
+    return out
+
+
+def parallel_multihost(work: str) -> dict:
+    """recipes/run_multihost.sh through ``tools.experiments
+    --recipe=multihost``: the frame DNN as two processes sharing the
+    first card over gloo, gated as (b): exit 0 on both, the PASSED line's
+    checkpoint, only rank 0 writing (one metrics row an iteration, one
+    events file a split), finite losses. The DNN runs no hand kernel."""
+    from rsrgan_tpu_torch.tools import experiments
+    args = experiments.build_parser().parse_args([
+        "--recipe=multihost", f"--workdir={os.path.join(work, 'multihost')}",
+        "--device=cuda"])
+    saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (saved or "0").split(",")[0]
+    try:
+        rc, res = experiments.run_recipe(args)
+    finally:
+        if saved is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES")
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    save_dir = res["save_dir"]
+    rows = {}
+    for split in ("train", "eval"):
+        with open(os.path.join(save_dir, f"metrics_{split}.jsonl")) as f:
+            rows[split] = [json.loads(ln) for ln in f if ln.strip()]
+    events = {s: len(os.listdir(os.path.join(save_dir, s)))
+              for s in ("train", "eval")}
+    losses = [v for r in rows["train"] + rows["eval"] for k, v in r.items()
+              if k.endswith("loss")]
+    out = {"phase": "parallel_multihost", "rc": rc,
+           "exit_codes": res["exit_codes"],
+           "eval_records": res["eval_records"],
+           "stage_seconds": res["stage_seconds"], "seconds": res["seconds"],
+           "rows": {s: len(r) for s, r in rows.items()}, "events": events,
+           "last_eval_g_loss": rows["eval"][-1]["g_loss"],
+           "train_frames_per_s": [r["train_frames_per_sec"]
+                                  for r in rows["train"]]}
+    out["ok"] = (rc == 0 and res["exit_codes"] == [0, 0]
+                 and res["eval_records"] == len(rows["eval"])
+                 == len(rows["train"]) >= 1
+                 and events == {"train": 1, "eval": 1}
+                 and all(np.isfinite(v) for v in losses))
+    emit(out)
+    return out
+
+
 def mps_status() -> dict:
     """Whether the card runs the MPS server (two ranks' 132-block
     cooperative grids could not then be resident at once): the compute
@@ -2711,31 +2923,38 @@ def parallel_shapes(runs: dict) -> dict:
 
 
 def phase_parallel(work: str, prepared: dict) -> dict:
-    """Data parallelism on the card: (a) the library step on two ranks
-    sharing the first card over gloo against the one-process step; (b)
-    the recipe's two-process CLI epoch and the decode of its checkpoint;
-    (c) the two-process decode against the one-process decode; (d) with
-    two or more cards, the library step a rank a card over nccl and a
-    --num_gpu=2 epoch, else a line saying it was not run. Then every
-    kernel at each shape a rank launched it at in those runs, against its
-    twin in f32 and bf16 (T the library batch's t_pad, rows of rank 0's
-    lengths). Times: two ranks time-slicing one card, not scaling."""
+    """Data and tensor parallelism on the card: (a) the library step on
+    two ranks sharing the first card over gloo against the one-process
+    step; (b) the recipe's two-process CLI epoch and the decode of its
+    checkpoint; (c) the two-process decode against the one-process
+    decode; (e) tensor parallelism, data 1 x model 2 and data 2 x model
+    2 (``parallel_tp``), and run_multihost.sh's two processes
+    (``parallel_multihost``); (d) with two or more cards, the library
+    step a rank a card over nccl and a --num_gpu=2 epoch, else a line
+    saying it was not run. Then every kernel at each shape a rank
+    launched it at in those runs, against its twin in f32 and bf16 (T
+    the library batch's t_pad, rows of rank 0's lengths). Times: ranks
+    time-slicing one card, not scaling."""
     import torch
     card = card_name_and_limit()
     mps = mps_status()
-    lib = parallel_library_step(prepared["train"], work, PAR_RANKS,
-                                per_card=False)
+    lib, ref, got = parallel_library_step(prepared["train"], work,
+                                          PAR_RANKS, per_card=False)
     cli = parallel_cli(prepared, work)
+    tp = parallel_tp(work, lib, ref, got, card)
+    multihost = parallel_multihost(work)
     out = {"phase": "parallel", "mps": mps, "library_step": lib, **cli,
+           "tensor_parallel": tp, "multihost": multihost,
            "name, power.limit": card}
     runs = {"library_step": lib["by_shape_per_rank"],
             "cli_epoch": cli["cli"]["by_shape_per_rank"],
-            "cli_decode": cli["decode"]["by_shape_per_rank"]}
+            "cli_decode": cli["decode"]["by_shape_per_rank"],
+            **{f"tp_{t}": tp[t]["by_shape_per_rank"] for t in TP_WORLDS}}
     cards = torch.cuda.device_count()
     multi_ok = True
     if cards >= 2:
         nccl = parallel_library_step(prepared["train"], work, 2,
-                                     per_card=True)
+                                     per_card=True)[0]
         runs["library_step_nccl"] = nccl["by_shape_per_rank"]
         codes, outs, secs, _ = cli_processes(lambda i: [
             *GAN_RNN_RECIPE, "--min_epoches=1", "--max_epoches=1",
@@ -2768,6 +2987,8 @@ def phase_parallel(work: str, prepared: dict) -> dict:
                           "stream before each, so the wait for the other "
                           "rank to reach it included")
     out["ok"] = (lib["ok"] and lib["backend"] == "gloo" and cli["ok"]
+                 and all(tp[t]["ok"] for t in TP_WORLDS)
+                 and multihost["ok"]
                  and multi_ok and bool(out["launches_by_shape"])
                  and all(r["ok"] for rs in kernels.values() for r in rs))
     emit(out)
@@ -3201,7 +3422,7 @@ def chain_counters() -> dict:
         f"{name}_by_shape": (fn, "launches_by_shape") for name, fn in (
             ("wavefront_fwd_train", wf.lstm_wavefront_fwd_train),
             ("wavefront_fwd", wf.lstm_wavefront_fwd),
-            ("lstm_bwd", ls.lstm_bwd))}}
+            ("lstm_bwd", ls.lstm_bwd), ("lstm_bwd_acc", ls.lstm_bwd_acc))}}
 
 
 def chain_kernel(kernel: str, key: str, dtype_name: str, T_: int = CHAIN_T,
@@ -3209,7 +3430,8 @@ def chain_kernel(kernel: str, key: str, dtype_name: str, T_: int = CHAIN_T,
     """One kernel at one shape that a run launched (``T_`` steps, rows of
     ``lengths`` repeated), every stream against its twin at the kernel
     phases' tolerances, on seeded inputs: K4 in train or decode mode; K1;
-    K2 on its forward twin's streams."""
+    K2 and K3 on the forward twin's streams (K3 on the route
+    ``bwd_acc_route`` gives the shape)."""
     import torch
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
@@ -3256,11 +3478,23 @@ def chain_kernel(kernel: str, key: str, dtype_name: str, T_: int = CHAIN_T,
                      **extra,
                      **rowgroup_grid(ls.rowgroup_plan(B_, U_, P_, cdt, sms)),
                      **k1_bound(U_, P_, B_, T_, lens, dtype_name))
-    _, c_h, _, acts = ls.lstm_fwd_reference(*k1_args)
+    _, c_h, h_h, acts = ls.lstm_fwd_reference(*k1_args)
     dout = torch.from_numpy(
         rng.normal(size=(T_, B_, P_)).astype(np.float32)).cuda()
     k2_args = (acts, lens_t, dout, c_h, prm["w_h"], prm["proj"], prm["wi"],
                prm["wf"], prm["wo"])
+    if kernel == "lstm_bwd_acc":
+        k3_args = k2_args[:4] + (h_h,) + k2_args[4:]
+        route = ls.bwd_acc_route(B_, U_, P_, cdt, sms)
+        grid = (rowgroup_grid(ls.rowgroup_bwd_plan(B_, U_, P_, cdt, sms))
+                if route == "rowgroup" else resident_grid(ls.resident_plan(
+                    B_, U_, P_, cdt, sms, acc=True))
+                if route == "resident" else {})
+        return timed(kernel, dtype_name, lambda: ls.lstm_bwd_acc(*k3_args),
+                     lambda: ls.lstm_bwd_acc_reference(*k3_args), K3_GRADS,
+                     route=route, **extra, **grid,
+                     **bwd_bound(U_, P_, B_, T_, lens, dtype_name,
+                                 acc=True))
     return timed(kernel, dtype_name, lambda: ls.lstm_bwd(*k2_args),
                  lambda: ls.lstm_bwd_reference(*k2_args), ("dxw", "m", "dh"),
                  **extra,
@@ -4153,7 +4387,9 @@ def kernels_line(results: dict) -> dict:
                                 REPLACES),
               "lstm_fwd": ("lstm_fwd (K1", "rsrgan_tpu/ops/pallas_lstm.py:74"),
               "lstm_bwd": ("lstm_bwd (K2",
-                           "rsrgan_tpu/ops/pallas_lstm.py:196")}
+                           "rsrgan_tpu/ops/pallas_lstm.py:196"),
+              "lstm_bwd_acc": ("lstm_bwd_acc (K3",
+                               "rsrgan_tpu/ops/pallas_lstm.py:364")}
     dec = results["kernel"]["bfloat16"]
     entries = [kernel_entry(
         "wavefront_fwd (decode, save_acts=False)", RESIDENT, REPLACES,
@@ -4262,12 +4498,14 @@ def kernels_line(results: dict) -> dict:
             label, replaces = labels[r["kernel"]]
             per = par["launches_by_shape"][f"{r['kernel']} {r['shape']}"]
             entry = kernel_entry(
-                f"{label}; a data-parallel rank at {r['shape']})", RESIDENT,
+                f"{label}; a data- or tensor-parallel rank at "
+                f"{r['shape']})", RESIDENT,
                 replaces, sum(sum(ranks) for ranks in per.values()),
                 "every rank of the parallel phase's runs (the f32 library "
                 "step, the recipe's bf16 two-process epoch, the f32 "
-                "two-process decode; launches_parallel: run -> each "
-                "rank's launches)", r, r)
+                "two-process decode, the f32 tensor-parallel steps tp_e1 "
+                "and tp_e2; launches_parallel: run -> each rank's "
+                "launches)", r, r)
             entry["launches_chain"] = None
             entry["launches_parallel"] = per
             entries.append(entry)

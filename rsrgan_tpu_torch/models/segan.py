@@ -114,9 +114,9 @@ class VirtualBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         world = current_world()
         rows = x.shape[0]
-        if world.world > 1 and not self.capture:
+        if world.data_size > 1 and not self.capture:
             batch_mean, batch_meansq = global_moments(x, (0, 2))
-            rows *= world.world
+            rows *= world.data_size
         else:
             batch_mean = x.mean((0, 2))
             batch_meansq = torch.square(x).mean((0, 2))

@@ -91,7 +91,7 @@ class BnLstmCell(nn.Module):
         statistics are the global batch's, in two passes as here: the
         global mean, then the global mean of the squared deviations (two
         all-reduces a call, as JAX's mesh reduces ``jnp.var``)."""
-        if train and current_world().world > 1:
+        if train and current_world().data_size > 1:
             return global_moments(x, (dim,), centred=True)
         if train:
             return x.mean(dim), x.var(dim, correction=0)
@@ -153,7 +153,7 @@ class BnLstmCell(nn.Module):
         if train:
             valid = mask.any(1)
             world = current_world()
-            if world.world > 1:   # a step any row of the global batch has
+            if world.data_size > 1:   # a step any row of the global batch has
                 valid = world.all_reduce_sum_(valid.float()) > 0
             self._fold(valid, mx, vx, step_stats)
         return torch.stack(outs, dim=1)

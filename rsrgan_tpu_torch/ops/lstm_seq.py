@@ -944,7 +944,8 @@ def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
     tensors take the twin; CUDA tensors launch the route ``bwd_acc_route``
     names, each counted apart: the row-group walk and the reduction of
     csrc/resident.cu (``launches``), the resident walk and the reduction
-    (``resident_launches``) or csrc/lstm_bwd.cu (``streaming_launches``);
+    (``resident_launches``) or csrc/lstm_bwd.cu (``streaming_launches``),
+    and every route's launches together by shape (``launches_by_shape``);
     a refused launch raises."""
     if acts.device.type == "cpu":
         return lstm_bwd_acc_reference(acts, lengths, dout, c_hist, h_hist,
@@ -964,12 +965,16 @@ def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
     else:
         out = _launch_bwd(*args, acc=True)
         lstm_bwd_acc.streaming_launches += 1
+    key = shape_key(proj, B)
+    lstm_bwd_acc.launches_by_shape[key] = (
+        lstm_bwd_acc.launches_by_shape.get(key, 0) + 1)
     return out
 
 
 lstm_bwd_acc.launches = 0  # row-group walk + reduction launches
 lstm_bwd_acc.resident_launches = 0  # resident walk + reduction launches
 lstm_bwd_acc.streaming_launches = 0  # csrc/lstm_bwd.cu launches
+lstm_bwd_acc.launches_by_shape = {}  # the three routes' launches by shape
 
 
 def lstm_bwd_grid(B: int, U: int, P: int, acc: bool, bf16: bool,

@@ -10,6 +10,7 @@
          --val_size=300 --rot_block=10 --prefetch=true --seed=777 ...]
     ... --recipe=ema_check [--lps_workdir=DIR --workdir=DIR --iters=50]
     ... --recipe=synth_quality [--workdir=DIR --iters=24]
+    ... --recipe=multihost [--workdir=DIR]
 
 Each recipe is the shell recipe of the same name under ``recipes/``
 (``run_<recipe>.sh``), stage by stage, each CLI called in this process
@@ -40,6 +41,15 @@ environment variables the recipes read (``ABLATION_MAX_LSD_RATIO``,
   and scored; the verdict (``ema_check.json``) is printed, not gated.
 - ``synth_quality``: the flagship on ``make_synthetic_corpus``; gate:
   enhanced MSE < 0.5 x the predict-the-mean MSE.
+- ``multihost``: the frame DNN on a 12-utterance ``make_synthetic_corpus``
+  as two processes of one data-parallel world
+  (``--coordinator_address=localhost:PORT --num_processes=2
+  --process_id=0|1``, a free port), started together; passes when the
+  second process exits 0 (the shell's ``wait $p0 $p1``) and a checkpoint
+  exists. The JAX recipe gives each process two XLA host devices (a
+  4-device mesh); a process of the port is one rank, so the port's world
+  is 2 ranks (global batch 16, learning rate x 2), the one-process
+  ``--num_gpu=2`` run's.
 
 Systems that are done (their ``DONE`` marker) are skipped, as in the
 recipes. Prints the CLIs' output, then one JSON line: each stage's
@@ -64,7 +74,7 @@ import numpy as np
 from rsrgan_tpu_torch.tools import recipe_stages as rs
 
 RECIPES = ("ablation", "ablation_mfcc", "ref_scale", "ema_check",
-           "synth_quality")
+           "synth_quality", "multihost")
 
 # each recipe's defaults (its positional arguments and environment);
 # workdirs lie under the temporary directory
@@ -79,6 +89,7 @@ DEFAULTS = {
     "ema_check": dict(lps_workdir="rsrgan_ablation",
                       workdir="rsrgan_ema_check", iters=50, stop_stage=3),
     "synth_quality": dict(workdir="rsrgan_quality", iters=24),
+    "multihost": dict(workdir="rsrgan_multihost"),
 }
 
 
@@ -756,9 +767,73 @@ def run_synth_quality(r: Runner) -> dict:
     return {"rc": 0 if gate["passed"] else 1, "gate": gate}
 
 
+def multihost_flags(data_dir: str, save_dir: str, port: int) -> List[str]:
+    """``run_multihost.sh``'s ``$common``: the frame DNN's training flags
+    and the coordinator of a two-process world (``--process_id``
+    follows)."""
+    return ["--trainer=dnn", "--g_type=dnn",
+            f"--tr_list_file={data_dir}/tr.list",
+            f"--cv_list_file={data_dir}/cv.list", f"--save_dir={save_dir}",
+            "--input_dim=16", "--output_dim=6", "--batch_size=8",
+            "--g_learning_rate=0.001", "--keep_lr=1", "--bf16=false",
+            "--l2_scale=0.0", "--min_epoches=1", "--max_epoches=2",
+            "--seed=7", f"--coordinator_address=localhost:{port}",
+            "--num_processes=2"]
+
+
+def run_multihost(r: Runner) -> dict:
+    """``recipes/run_multihost.sh``: a 12-utterance synthetic corpus (16
+    -> 6), its stores, the frame DNN as two processes of one world, the
+    checkpoint check and the PASSED line."""
+    from rsrgan_tpu_torch.data import synthetic
+    from rsrgan_tpu_torch.parallel import free_port
+
+    w = r.args.workdir
+    data_dir, save_dir = f"{w}/data", f"{w}/exp"
+    with r.timer.stage("corpus"):
+        shutil.rmtree(w, ignore_errors=True)
+        os.makedirs(w)
+        synthetic.make_synthetic_corpus(data_dir, num_utts=12, input_dim=16,
+                                        output_dim=6, min_len=30,
+                                        max_len=60)
+    with r.timer.stage("prepare"):
+        r.cli("cli.prepare", ["cmvn", f"--inputs={data_dir}/inputs.cmvn",
+                              f"--labels={data_dir}/labels.cmvn",
+                              f"--save_dir={data_dir}"], "prepare")
+        r.cli("cli.prepare", ["split", "--val_size=4",
+                              f"--data_dir={data_dir}", "--seed=1"],
+              "prepare")
+        for sub in ("tr", "cv"):
+            r.cli("cli.prepare", [
+                "make-store", f"--inputs={data_dir}/{sub}/inputs.scp",
+                f"--labels={data_dir}/{sub}/labels.scp",
+                f"--cmvn_dir={data_dir}", f"--output_dir={data_dir}/stores",
+                f"--name={sub}"], "prepare")
+            with open(f"{data_dir}/{sub}.list", "w") as f:
+                f.write(f"{data_dir}/stores/{sub}.rtu\n")
+    common = multihost_flags(data_dir, save_dir, free_port())
+    with r.timer.stage("train"):
+        codes = rs.run_processes("cli.train", [
+            [*common, f"--process_id={i}", *r.dev] for i in range(2)])
+    r.systems = [System("dnn", "dnn", save_dir)]
+    # `wait $p0 $p1` returns the last process's status, which set -e
+    # exits with
+    rc = codes[-1]
+    if rc == 0 and not os.path.isfile(f"{save_dir}/checkpoint"):
+        print("FAIL: no checkpoint", flush=True)
+        rc = 1
+    eval_rows = None
+    if rc == 0:
+        with open(f"{save_dir}/metrics_eval.jsonl") as f:
+            eval_rows = sum(1 for line in f if line.strip("\n"))
+        print(f"MULTIHOST RUN PASSED ({eval_rows} eval records)", flush=True)
+    return {"rc": rc, "exit_codes": codes, "save_dir": save_dir,
+            "eval_records": eval_rows}
+
+
 RUN = {"ablation": run_ablation, "ablation_mfcc": run_ablation_mfcc,
        "ref_scale": run_ref_scale, "ema_check": run_ema_check,
-       "synth_quality": run_synth_quality}
+       "synth_quality": run_synth_quality, "multihost": run_multihost}
 
 
 def run_recipe(args: argparse.Namespace, assets: Optional[dict] = None,

@@ -1,7 +1,7 @@
 """What the recipe runners (``e2e_chain``, ``experiments``) share: a CLI
-call that must exit 0 (its printed lines captured or not), the recipes'
-prepare stage, their awk filter of an scp, JSONL rows, a score call's
-summary line, and a timer of named stages."""
+call that must exit 0 (its printed lines captured or not), CLI processes
+started together, the recipes' prepare stage, their awk filter of an scp,
+JSONL rows, a score call's summary line, and a timer of named stages."""
 
 from __future__ import annotations
 
@@ -10,9 +10,16 @@ import importlib
 import io
 import json
 import os
+import subprocess
 import sys
 import time
 from typing import Callable, Dict, List
+
+# the directory that holds the rsrgan_tpu_torch package
+PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# how long a process of ``run_processes`` may run
+PROCESS_TIMEOUT = 600
 
 
 def read_jsonl(path: str) -> List[dict]:
@@ -41,6 +48,31 @@ def run_cli(name: str, argv: List[str]) -> int:
     """``python -m rsrgan_tpu_torch.{name} argv`` in this process: its
     exit code."""
     return importlib.import_module(f"rsrgan_tpu_torch.{name}").main(argv)
+
+
+def run_processes(name: str, argvs: List[List[str]],
+                  timeout: float = PROCESS_TIMEOUT) -> List[int]:
+    """``python -m rsrgan_tpu_torch.{name} argv`` for every argv of
+    ``argvs``, as processes started together (a recipe's ``cmd &`` ...
+    ``wait``) that inherit this process's output; their exit codes. A
+    process still running past ``timeout`` seconds, or when the caller
+    is interrupted, is killed."""
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=PACKAGE_ROOT if not path
+               else os.pathsep.join([PACKAGE_ROOT, path]))
+    sys.stdout.flush()
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               f"rsrgan_tpu_torch.{name}", *argv], env=env)
+             for argv in argvs]
+    deadline = time.monotonic() + timeout
+    try:
+        return [p.wait(timeout=max(0.0, deadline - time.monotonic()))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def check_cli(name: str, argv: List[str], stage: str) -> None:

@@ -400,13 +400,15 @@ def state_tree(state) -> dict:
     """A ``GanState`` or ``MseState`` as the tree flax's ``to_bytes``
     writes for the JAX state after a train step (every inner dict's keys
     sorted; ``extra`` None or ``{collection: ...}``), of copies: later
-    steps leave it as it is."""
+    steps leave it as it is. A tensor-parallel state's EMA and moments
+    are gathered whole first, a collective that every rank of a model
+    group makes; rank 0 then writes the tree."""
     from rsrgan_tpu_torch.models import module_tree
 
     def net(ns):
         return {"params": module_tree(ns.module),
-                "opt_state": _opt_tree(ns.tx, ns.opt_state),
-                "ema": _np_tree(ns.ema), "extra": ns.extra()}
+                "opt_state": _opt_tree(ns.tx, ns.whole_opt_state()),
+                "ema": _np_tree(ns.wholes(ns.ema)), "extra": ns.extra()}
 
     tree = {key: net(getattr(state, key)) for key in _nets(state)}
     tree["step"] = np.asarray(state.step, np.int32)
@@ -417,23 +419,24 @@ def load_state_tree(state, tree: dict) -> None:
     """Copy a checkpoint's tree (a JAX ``GanState`` or ``MseState``, or
     one ``state_tree`` wrote) into ``state`` in place: params, EMA,
     optimizer state, ``extra`` (the BatchNorm statistics), step. Fails
-    on any missing or extra leaf."""
+    on any missing or extra leaf. A tensor-parallel state keeps this
+    rank's block of each sharded leaf's EMA and moments."""
     import torch
 
     from rsrgan_tpu_torch.models import flatten_tree, load_flax_params
 
-    def tensors(node, like):
+    def tensors(ns, node, like):
         flat = flatten_tree(node)
         if sorted(flat) != sorted(like):
             raise KeyError(f"tree mismatch: {sorted(set(flat) ^ set(like))}")
-        return {k: torch.from_numpy(np.array(flat[k], np.float32)).to(
-            like[k].device) for k in like}
+        return ns.blocks({k: torch.from_numpy(np.array(
+            flat[k], np.float32)).to(like[k].device) for k in like})
 
     for key in _nets(state):
         ns, node = getattr(state, key), tree[key]
         load_flax_params(ns.module, node["params"])
         ns.load_extra(node.get("extra"))
-        ns.ema = tensors(node["ema"], ns.ema)
+        ns.ema = tensors(ns, node["ema"], ns.ema)
         core = node["opt_state"]["1"]
         for field, value in ns.opt_state.items():
             if field == "count":
@@ -441,7 +444,7 @@ def load_state_tree(state, tree: dict) -> None:
                     int(core["count"]), dtype=torch.int32,
                     device=value.device)
             else:
-                ns.opt_state[field] = tensors(core[field], value)
+                ns.opt_state[field] = tensors(ns, core[field], value)
         extra = set(core) - set(ns.opt_state)
         if extra:
             raise KeyError(f"{key} optimizer state has unknown {extra}")

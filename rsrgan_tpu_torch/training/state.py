@@ -15,6 +15,17 @@ collections (flax's ``batch_stats`` of BatchNorm and BnLstm layers, the
 ``vbn_stats`` of virtual batch norm) are its buffers: ``NetState.extra``
 reads them as the JAX ``NetState.extra`` tree, outside the EMA and the
 optimizer.
+
+Tensor parallelism (``parallel.shard_state(..., tensor_parallel=True)``):
+``NetState.shard`` keeps this rank's model block of the EMA shadow and of
+the optimizer's moments of every leaf that ``lstm_param_sharding``
+shards. The update then runs: the data group's mean (``world_mean``, in
+the trainer), the per-tensor clip of the whole gradient (a block's norm
+would clip otherwise), this rank's block, the optimizer and the EMA on
+the block, and the blocks gathered back into the module's whole
+parameter over the model group (``gather_blocks``, exact). Every step
+after the clip is elementwise, so the step equals the data-parallel one
+bit for bit.
 """
 
 from __future__ import annotations
@@ -26,7 +37,10 @@ from torch import nn
 
 from rsrgan_tpu_torch.models.bridge import (collections_tree,
                                             load_collections)
-from rsrgan_tpu_torch.parallel.mesh import all_reduce_mean, current_world
+from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
+                                            gather_blocks,
+                                            lstm_param_sharding,
+                                            model_block)
 
 Tree = Dict[str, torch.Tensor]
 
@@ -129,13 +143,17 @@ def make_optimizer(name: str):
 
 class NetState:
     """One network's trainable state: the module (its parameters), the
-    optimizer and its state, and the EMA shadow of every parameter."""
+    optimizer and its state, and the EMA shadow of every parameter.
+    ``shards``: {parameter name: sharded axis} of a tensor-parallel state
+    (``shard``), whose EMA and moments of those leaves are this rank's
+    model blocks; empty otherwise."""
 
     def __init__(self, module: nn.Module, optimizer: str,
                  max_grad_norm: Optional[float]):
         self.module = module
         self.tx = make_optimizer(optimizer)
         self.max_grad_norm = max_grad_norm
+        self.shards: Dict[str, int] = {}
         with torch.no_grad():
             self.opt_state = self.tx.init(self.params())
             self.ema = {k: p.detach().clone()
@@ -173,12 +191,66 @@ class NetState:
         None for a module without any."""
         load_collections(self.module, extra)
 
+    # -- tensor parallelism ---------------------------------------------------
+
+    def shard(self, world) -> None:
+        """Keep only ``world``'s model block of the EMA and of the
+        optimizer's moments (Adam ``mu``/``nu``, RMSProp ``nu``) of every
+        parameter that ``lstm_param_sharding`` shards; the module keeps
+        its whole parameters."""
+        self.shards = {}
+        for k, p in self.params().items():
+            axis = lstm_param_sharding(world, k, tuple(p.shape))
+            if axis is not None:
+                self.shards[k] = axis
+        self.ema = self.blocks(self.ema, world)
+        for field in ("mu", "nu"):
+            if field in self.opt_state:
+                self.opt_state[field] = self.blocks(self.opt_state[field],
+                                                    world)
+
+    @torch.no_grad()
+    def blocks(self, tree: Tree, world=None) -> Tree:
+        """``tree`` (whole tensors by parameter name) with each sharded
+        leaf cut to the block of this rank of ``world`` (default: the
+        current world), a contiguous copy."""
+        world = current_world() if world is None else world
+        return {k: model_block(world, v, self.shards[k]).clone()
+                if k in self.shards else v for k, v in tree.items()}
+
+    @torch.no_grad()
+    def wholes(self, tree: Tree) -> Tree:
+        """``tree`` with each sharded leaf's block gathered into the whole
+        tensor over the model group: a collective that every rank of the
+        group makes. ``tree`` itself when nothing is sharded."""
+        if not self.shards:
+            return tree
+        out, parts = dict(tree), []
+        for k, axis in self.shards.items():
+            out[k] = torch.empty_like(self.module.get_parameter(k))
+            parts.append((out[k], tree[k], axis))
+        gather_blocks(current_world(), parts)
+        return out
+
+    def whole_opt_state(self) -> dict:
+        """The optimizer's state with whole moments (``wholes``)."""
+        return {f: self.wholes(v) if f in ("mu", "nu") else v
+                for f, v in self.opt_state.items()}
+
     @torch.no_grad()
     def apply_gradients(self, grads: Tree, lr: float,
                         ema_decay: float) -> None:
         grads = clip_by_norm_each(grads, self.max_grad_norm)
+        if self.shards:
+            grads = self.blocks(grads)
         updates = self.tx.update(grads, self.opt_state)
+        gathered = []
         for k, p in self.params().items():
+            if k in self.shards:
+                whole, axis = p, self.shards[k]
+                p = model_block(current_world(), whole, axis).clone()
+                gathered.append((whole, p, axis))
             p.sub_(lr * updates[k])
             e = self.ema[k]
             e.sub_((1.0 - ema_decay) * (e - p))
+        gather_blocks(current_world(), gathered)

@@ -97,7 +97,9 @@ def fake_outputs(call):
     corpus's directory and clean wav.scp; a train call's --save_dir and,
     on --decode, test/feats.scp (absolute ark paths, as the decode CLI
     writes them); simulate's wav.scp and extract's NAME.scp (and
-    NAME.cmvn with --accumulate_cmvn); split's cv/inputs.scp."""
+    NAME.cmvn with --accumulate_cmvn); split's cv/inputs.scp; the
+    coordinator process of a multi-process train call its checkpoint
+    pointer and eval rows."""
     kw = dict(a[2:].split("=", 1) for a in call[1:]
               if isinstance(a, str) and a.startswith("--") and "=" in a)
 
@@ -111,6 +113,9 @@ def fake_outputs(call):
         os.makedirs(call[1][0], exist_ok=True)
     elif "save_dir" in kw and call[0].endswith("cli.train"):
         os.makedirs(kw["save_dir"], exist_ok=True)
+        if kw.get("process_id") == "0":   # the coordinator writes
+            write(f"{kw['save_dir']}/checkpoint", ["TP-1.ckpt"])
+            write(f"{kw['save_dir']}/metrics_eval.jsonl", ["{}", "{}"])
         if "--decode" in call:
             d = f"{kw['save_dir']}/test"
             write(f"{d}/feats.scp", [f"u1 {d}/feats.ark:6",
@@ -180,6 +185,8 @@ def runner_calls(monkeypatch, argv):
             return ret
         return f
     monkeypatch.setattr(recipe_stages, "run_cli", cli)
+    monkeypatch.setattr(recipe_stages, "run_processes",
+                        lambda name, argvs: [cli(name, a) for a in argvs])
     monkeypatch.setattr(sim, "make_sim_assets", generator("make_sim_assets"))
     monkeypatch.setattr(synthetic, "make_synthetic_corpus",
                         generator("make_synthetic_corpus"))
