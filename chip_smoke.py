@@ -21,7 +21,10 @@ JSON line each; any failure ends the run non-zero:
    it: K4 in train mode (save_acts=True) at G's width, B=16, T=500, and
    at --g_type=lstm's stack (L=3, U=760, P=280, residual off); K1 (the
    D forward, the row-group kernel) at 16 and 32 rows, and at G's width
-   (U=760, P=257: res_lstm_l with dropout) at 16 and 32 rows; K2 at G's
+   (U=760, P=257: res_lstm_l with dropout, res_lstm_i) at 16 and 32 rows
+   on its resident route (K4's grid at L = 1), timed beside the
+   row-group kernel and the streaming kernel, each launch's route
+   checked by lstm_fwd's count by route; K2 at G's
    width (16 rows) and D's (16 rows); K3 at D's width (the row-group walk
    and its reduction) at 32 and 64 rows, and at G's width at B=32, 64,
    128 and 256 (K2's resident walk in acc mode and the reduction, the
@@ -31,8 +34,8 @@ JSON line each; any failure ends the run non-zero:
    launch count; the redesigned kernels (K4, K2, K1, K3) also for
    bit-equal relaunches and beside the streaming kernels they replaced.
    Then all four at small odd shapes (U=13, P=9 and U=200, P=40; B=1, 3,
-   33 and 64; a zero-length row), K1 also without its saved streams and
-   at G's width.
+   33 and 64; a zero-length row), K1 also without its saved streams, on
+   its resident route launched directly, and at G's width.
 4. grad — gradients of the full-width G stack (B=16, and B=32 with K3's
    resident route in every layer) and of D (16 and 32 rows) through the
    kernels' autograd Functions against the eager cell under autograd,
@@ -60,8 +63,15 @@ JSON line each; any failure ends the run non-zero:
    ``--d_conditioned=true``, each with finite losses and on the kernel
    routes (launch counts); one with ``--keep_prob=0.8`` (G per layer: K1
    at G width 4 x 3 times an iteration past the main path's launches,
-   K2 backward, no K4 train launch; its ms per iteration beside the
-   main path's); one with ``--g_type=lstm`` (K4 train at P=280, two
+   all on K1's resident route, K2 backward, no K4 train launch; its ms
+   per iteration beside the main path's and beside the epoch's time with
+   K1 at G width on the row-group kernel); one with
+   ``--g_type=res_lstm_i`` (G's 2 layers always per layer: K1 at G width
+   on the resident route for every G forward and cv batch, K2 backward,
+   no K4) and ``--decode`` from its checkpoint (K1 without its saved
+   streams, 2 a batch), then K1 and K2 at every G-width shape the two
+   launched against their twins in f32 and bf16; one with
+   ``--g_type=lstm`` (K4 train at P=280, two
    launches an iteration) and ``--decode`` from its checkpoint; two with
    ``--checkpoint_every_secs=1`` and the default ``--tensorboard`` (the
    event files' records and steps against metrics_*.jsonl, the periodic
@@ -85,7 +95,11 @@ JSON line each; any failure ends the run non-zero:
    one K4 train launch and one K2 launch per G layer, no K1 and no K3),
    its ms per iteration and train frames/s beside the flagship's; one
    on the host feed before it and one after, checkpoints and metrics
-   bit-equal to it; one at B=32,
+   bit-equal to it; one with ``--keep_prob=0.8`` (G per layer: K1 at G
+   width on its resident route and K2, once per layer an iteration, no
+   K4 train; the cv pass on K4 decode), its ms per iteration, and K1 and
+   K2 at every G-width shape it launched against their twins; one at
+   B=32,
    every G-layer backward on K3's resident route and none on
    csrc/lstm_bwd.cu; one f32 step through the kernels against
    --lstm_impl=scan (gradients and post-step params, GRAD_TOL); and
@@ -399,6 +413,29 @@ def rowgroup_grid(plan) -> dict:
             "weights_resident": plan.weights_resident()}
 
 
+def k1_grid(B_, U_, P_, cdt, sms) -> dict:
+    """K1's launch at these sizes on the route ``fwd_route`` names: the
+    row-group kernel's groups, or K4's resident grid at L = 1."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import wavefront as wf
+    route = ls.fwd_route(B_, U_, P_, cdt, sms)
+    if route == "rowgroup":
+        return rowgroup_grid(ls.rowgroup_plan(B_, U_, P_, cdt, sms))
+    plan = wf.resident_plan(B_, 1, U_, P_, cdt, sms)
+    return {**resident_grid(plan), "K": plan.Kp}
+
+
+def k1_route_check(route: str, calls: int):
+    """A ``timed`` check: the next ``calls`` calls of lstm_fwd (1 + the
+    timed launches + 2 relaunches) all took ``route``."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    before = dict(ls.lstm_fwd.launches_by_route)
+    return lambda: (ls.lstm_fwd.launches_by_route.get(route, 0)
+                    == before.get(route, 0) + calls
+                    and sum(ls.lstm_fwd.launches_by_route.values())
+                    == sum(before.values()) + calls)
+
+
 def phase_kernel(dtype_name: str) -> dict:
     """K4 decode at B=16 (the main path's batch), then B=1 and B=64
     (--decode_batch_size 1 and 64), each against its twin; the streaming
@@ -573,7 +610,7 @@ def torch_isfinite(t) -> bool:
 
 
 def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
-          streaming=None, steps=None, check=None, **extra):
+          streaming=None, steps=None, check=None, faster_than=(), **extra):
     """Run kernel and twin on the same inputs, compare every stream, time
     both (kernel over ``reps`` launches, twin over its one run); a
     redesigned kernel
@@ -581,7 +618,9 @@ def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
     from L2, on the same inputs) is also checked for bit-equal relaunches
     and timed beside it; with ``steps`` (the recurrence's length) also µs
     per step; with ``check`` (read after every launch) also that the calls
-    took the kernel they should; emit the phase."""
+    took the kernel they should; with ``faster_than`` (keys of ``extra``
+    or "streaming_ms") also that the kernel beat each of those times; emit
+    the phase."""
     import torch
     got = fn()
     torch.cuda.synchronize()
@@ -602,6 +641,8 @@ def timed(name, dtype_name, fn, twin, names, reps=5, tol=None,
     if check is not None:
         extra["route_ok"] = check()
         ok = ok and extra["route_ok"]
+    if faster_than:
+        extra["faster_than"] = {k: ms < extra[k] for k in faster_than}
     out = {"phase": "kernels_train", "kernel": name, "dtype": dtype_name,
            **extra, "max_abs_err": errs, "max_abs_ref": refs,
            "tol": TOL[dtype_name] if tol is None else tol,
@@ -694,8 +735,10 @@ def phase_kernels_train(dtype_name: str) -> list:
         **resident_grid(ls.resident_plan(B, U, P, cdt, sms)),
         **bwd_bound(U, P, B, TT, TRAIN_LENGTHS, dtype_name, acc=False)))
 
-    # K1 at G's width, as dropout runs G per layer (--keep_prob < 1): B=16
-    # (bench.py) and 32 (the CLI's default), one row a block
+    # K1 at G's width, as dropout and res_lstm_i run G per layer: B=16
+    # (bench.py) and 32 (the CLI's default), on the resident route (K4's
+    # grid at L = 1), timed beside the row-group kernel and the streaming
+    # kernel on the same inputs
     for rows in (B, 2 * B):
         rng = np.random.default_rng(20 + rows)
         g_lens = (TRAIN_LENGTHS * 2)[:rows]
@@ -706,13 +749,24 @@ def phase_kernels_train(dtype_name: str) -> list:
         k1_args = (xw, torch.tensor(g_lens, dtype=torch.int32, device="cuda"),
                    prm["w_h"], prm["proj"], prm["bias"], prm["wi"],
                    prm["wf"], prm["wo"])
-        results.append(timed(
+        rowgroup = lambda: ls._launch_fwd_rowgroup(  # noqa: E731
+            *k1_args, save_acts=True)
+        rowgroup_errs, _, rowgroup_ok = compare_streams(
+            streams4, rowgroup(), ls.lstm_fwd_reference(*k1_args),
+            dtype_name)
+        r = timed(
             "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
             lambda: ls.lstm_fwd_reference(*k1_args), streams4,
             streaming=lambda: streaming_fwd(*k1_args), steps=TT,
+            check=k1_route_check("resident", 8),
+            faster_than=("rowgroup_ms", "streaming_ms"),
             net="G", U=U, P=P, B=rows, T=TT,
-            **rowgroup_grid(ls.rowgroup_plan(rows, U, P, cdt, sms)),
-            **k1_bound(U, P, rows, TT, g_lens, dtype_name)))
+            rowgroup_ms=cuda_time_ms(rowgroup, 2),
+            rowgroup_max_abs_err=rowgroup_errs, rowgroup_ok=rowgroup_ok,
+            **k1_grid(rows, U, P, cdt, sms),
+            **k1_bound(U, P, rows, TT, g_lens, dtype_name))
+        r["ok"] = r["ok"] and rowgroup_ok
+        results.append(r)
 
     # K3 at G's width, at the batches where every G layer's backward takes
     # it: B=32 (the CLI's default --batch_size), 64 and 256 (bench.py)
@@ -736,8 +790,9 @@ def phase_kernels_train(dtype_name: str) -> list:
                 "lstm_fwd", dtype_name, lambda: ls.lstm_fwd(*k1_args),
                 lambda: ls.lstm_fwd_reference(*k1_args), streams4,
                 streaming=lambda: streaming_fwd(*k1_args), steps=TT,
+                check=k1_route_check("rowgroup", 8),
                 net="D", U=DU, P=DP, B=rows, T=TT,
-                **rowgroup_grid(ls.rowgroup_plan(rows, DU, DP, cdt, sms)),
+                **k1_grid(rows, DU, DP, cdt, sms),
                 **k1_bound(DU, DP, rows, TT, d_lens, dtype_name)))
         out, c_h, h_h, d_acts = ls.lstm_fwd(*k1_args)
         d_dout = torch.from_numpy(
@@ -848,8 +903,9 @@ def phase_kernels_train_small() -> dict:
     """The training kernels at odd sizes (K4 train mode at the SMALL
     shapes; K1, K2 and K3 at U=13, P=9 with 1, 3, 33 and 64 rows and at
     U=200, P=40: units that do not divide the grid; K1 also without its
-    saved streams, and at G's width, U=760, P=257, where its weights only
-    partly fit in shared memory), f32, a zero-length row, absolute 1e-5
+    saved streams, on its resident route launched directly at those
+    shapes, and at G's width, U=760, P=257, where lstm_fwd takes that
+    route), f32, a zero-length row, absolute 1e-5
     scaled as above; the redesigned kernels (K4, K2, K1, K3) also checked
     for bit-equal relaunches. K3 takes any row count (here always its
     row-group walk)."""
@@ -899,6 +955,17 @@ def phase_kernels_train_small() -> dict:
         check(f"lstm_fwd_no_acts_{tag}", ("out",),
               ls.lstm_fwd(*k1_args, save_acts=False)[:1],
               ls.lstm_fwd_reference(*k1_args, save_acts=False)[:1])
+        # K1's resident route (K4's grid at L = 1, K = P padded) at the
+        # same odd shapes, where fwd_route takes the row-group kernel
+        for save in (True, False):
+            n = 4 if save else 1
+            check(f"lstm_fwd_resident_save_{save}_{tag}",
+                  ("out", "c_hist", "h_hist", "acts")[:n],
+                  ls._launch_fwd_resident(*k1_args, save_acts=save)[:n],
+                  ls.lstm_fwd_reference(*k1_args, save_acts=save)[:n])
+        deterministic(f"lstm_fwd_resident_{tag}",
+                      lambda: ls._launch_fwd_resident(*k1_args,
+                                                      save_acts=True))
         dout = torch.from_numpy(
             rng.normal(size=(T_, rows, P_)).astype(np.float32)).cuda()
         common = (got[3], lens_t, dout, got[1])
@@ -913,7 +980,8 @@ def phase_kernels_train_small() -> dict:
               ls.lstm_bwd_acc_reference(*common, got[2], *weights))
         deterministic(f"lstm_bwd_acc_{tag}",
                       lambda: ls.lstm_bwd_acc(*common, got[2], *weights))
-    # K1 at G's width: the weight rows past shared memory come from L2
+    # K1 at G's width on its resident route (K4's grid at L = 1), with
+    # and without the saved streams
     prm = layer_params(rng, P, U, P, f32, "cuda")
     x = torch.from_numpy(rng.normal(size=(T_, B, P)).astype(np.float32))
     k1_args = (x.cuda() @ prm["w_x"],
@@ -1391,14 +1459,43 @@ def finite_losses(row, cv_row) -> bool:
                if k.endswith("loss"))
 
 
+# ms per iteration of the dropout epoch below with K1 at G width on the
+# row-group kernel, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+DROPOUT_MS_ROWGROUP = (504.3, 526.9)
+
+
+def k1_routes_ok(launches: dict, resident: int, rowgroup: int) -> bool:
+    """K1's launches of a run (``lstm_fwd_by_route``): ``resident`` on
+    K4's grid at L = 1 (G width) and ``rowgroup`` on the row-group kernel
+    (the D layer), none elsewhere."""
+    by_route = launches["lstm_fwd_by_route"]
+    return (by_route.get("resident", 0) == resident
+            and by_route.get("rowgroup", 0) == rowgroup
+            and launches["lstm_fwd"] == resident + rowgroup)
+
+
+def g_width_checks(runs) -> list:
+    """K1 and K2 at every G-width shape (U=760) the runs (launch counts by
+    shape) launched them at, against their twins in f32 and bf16 at
+    T=CHAIN_T, ragged rows (``chain_kernel``; K1 on the route
+    ``fwd_route`` names, checked by its count)."""
+    shapes = sorted({(name, key) for launches in runs
+                     for name in ("lstm_fwd", "lstm_bwd")
+                     for key in launches[f"{name}_by_shape"]
+                     if parse_shape(key)["U"] == U})
+    return [chain_kernel(name, key, d, phase="train_g_width_kernels")
+            for name, key in shapes for d in ("float32", "bfloat16")]
+
+
 def dropout_epoch(train_cli, counters, flags, main_row, main_launches):
     """--keep_prob=0.8 with res_lstm_l, on the same batches as the main
     path: G leaves the wavefront for the per-layer kernels, K1 at G width
     forward (4 layers x 3 G forwards an iteration: the D step's fake and
-    each G step draw their own masks) and K2 backward at B=16, no K4 in
-    train mode. K1 at G width is counted where the wrapper launches it
-    (``lstm_fwd.launches_by_shape`` at U=760); D's and the cv pass's K1
-    launches are the main path's."""
+    each G step draw their own masks) on its resident route and K2
+    backward at B=16, no K4 in train mode. K1 at G width is counted where
+    the wrapper launches it (``lstm_fwd.launches_by_shape`` at U=760,
+    ``launches_by_route``); D's and the cv pass's K1 launches are the
+    main path's, on the row-group kernel."""
     row, cv_row, launches, secs = cli_epoch(
         train_cli, counters, flags("dropout", "--keep_prob=0.8"))
     steps = row["train_steps"]
@@ -1406,15 +1503,74 @@ def dropout_epoch(train_cli, counters, flags, main_row, main_launches):
     out = {"launches": launches, "k1_g_width_launches": k1_g,
            "k1_g_width_per_iteration": k1_g / steps, "seconds": secs,
            "speed": speed(row), "flagship_speed": speed(main_row),
+           "ms_per_iteration_rowgroup_k1": DROPOUT_MS_ROWGROUP,
            "losses": {k: v for k, v in row.items() if k.endswith("loss")}}
     out["ok"] = (finite_losses(row, cv_row)
                  and steps == main_row["train_steps"]
                  and k1_g == L * 3 * steps
-                 and launches["lstm_fwd"] == main_launches["lstm_fwd"] + k1_g
+                 and k1_routes_ok(launches, k1_g, main_launches["lstm_fwd"])
                  and launches["wavefront_fwd_train"] == 0
                  and launches["lstm_bwd"] == main_launches["lstm_bwd"]
                  and launches["lstm_bwd_acc_streaming"] == 0)
     emit({"phase": "train_dropout", **out,
+          "name, power.limit": card_name_and_limit()})
+    return out
+
+
+def res_lstm_i_epoch(train_cli, flags, work, data_dir, cv_list, main_row,
+                     main_launches):
+    """--g_type=res_lstm_i (2 layers; the second takes the first's output
+    plus the inputs, which the wavefront cannot express): G always per
+    layer, in training and in decode. One epoch on the main path's
+    batches: K1 at G width on its resident route for 2 layers of every G
+    forward (the main path's K4 train and decode launches: the shared
+    forward and the second G step's, and one a cv batch), K2 backward for
+    2 layers in each of the 2 G steps where res_lstm_l has 4, no K4; D's
+    K1, K2 and K3 launches as the main path's. Then --decode from its
+    checkpoint: K1 at G width without its saved streams, 2 a decode
+    batch, on the resident route, no K4."""
+    import torch
+    counters = chain_counters()
+    row, cv_row, launches, secs = cli_epoch(
+        train_cli, counters, flags("res_lstm_i", "--g_type=res_lstm_i"))
+    steps = row["train_steps"]
+    k1_g = launches_at_units(launches["lstm_fwd_by_shape"], U)
+    g_forwards = (main_launches["wavefront_fwd_train"]
+                  + main_launches["wavefront_fwd"])
+    save_dir = os.path.join(work, "res_lstm_i")
+    reset_counts(counters)
+    decode = decode_checkpoint(
+        train_cli, ["--trainer=gan_rnn", "--g_type=res_lstm_i",
+                    "--decode_batch_size=16", f"--input_dim={P}",
+                    f"--output_dim={OUT}", f"--data_dir={data_dir}",
+                    f"--test_list_file={cv_list}", f"--save_dir={save_dir}"],
+        save_dir, 16)
+    torch.cuda.synchronize()
+    dec = read_counts(counters)
+    dec_k1 = dec["lstm_fwd"]
+    checks = g_width_checks((launches, dec))
+    out = {"launches": launches, "k1_g_width_launches": k1_g,
+           "k1_g_width_per_iteration": k1_g / steps, "seconds": secs,
+           "speed": speed(row), "flagship_speed": speed(main_row),
+           "losses": {k: v for k, v in row.items() if k.endswith("loss")},
+           "decode": {**decode, "launches": dec},
+           "g_width_kernels_ok": all(r["ok"] for r in checks)}
+    out["ok"] = (finite_losses(row, cv_row)
+                 and steps == main_row["train_steps"]
+                 and k1_g == 2 * g_forwards
+                 and k1_routes_ok(launches, k1_g, main_launches["lstm_fwd"])
+                 and launches["wavefront_fwd_train"] == 0
+                 and launches["wavefront_fwd"] == 0
+                 and launches["lstm_bwd"]
+                 == main_launches["lstm_bwd"] - (L - 2) * 2 * steps
+                 and launches["lstm_bwd_acc"] == main_launches["lstm_bwd_acc"]
+                 and launches["lstm_bwd_acc_resident"] == 0
+                 and launches["lstm_bwd_acc_streaming"] == 0
+                 and decode["ok"] and dec_k1 > 0 and dec_k1 % 2 == 0
+                 and k1_routes_ok(dec, dec_k1, 0)
+                 and dec["wavefront_fwd"] == 0
+                 and out["g_width_kernels_ok"])
+    emit({"phase": "train_res_lstm_i", **out,
           "name, power.limit": card_name_and_limit()})
     return out
 
@@ -1603,6 +1759,8 @@ def phase_train(work: str, prepared: dict) -> dict:
                                         for x in v_losses.values()))}
 
     dropout = dropout_epoch(train_cli, counters, flags, row, launches)
+    res_i = res_lstm_i_epoch(train_cli, flags, work, data_dir, cv_list, row,
+                             launches)
     lstm = lstm_epoch(train_cli, counters, flags, work, data_dir, cv_list,
                       row, launches)
     snapshots = snapshot_epochs(train_cli, counters, flags, work)
@@ -1641,7 +1799,8 @@ def phase_train(work: str, prepared: dict) -> dict:
            "ms_per_iteration": 1e3 * row["train_secs"] / row["train_steps"],
            "feeds": feed_speeds, "feeds_bit_equal": feeds_equal,
            "losses": losses, "checkpoint": os.path.basename(ckpt or ""),
-           "variants": variants, "dropout": dropout, "lstm": lstm,
+           "variants": variants, "dropout": dropout, "res_lstm_i": res_i,
+           "lstm": lstm,
            "snapshots": snapshots,
            "decode_ok": decode_ok, "parity_f32": parity,
            "profile_bf16_step": profile, "k3_rowgroup_in_step": k3_rowgroup,
@@ -1651,7 +1810,8 @@ def phase_train(work: str, prepared: dict) -> dict:
            "feed_reserve_bytes": train_cli.FEED_RESERVE_BYTES,
            "ok": (on_kernel_routes(launches) and feeds_equal
                   and all(v["ok"] for v in variants.values())
-                  and dropout["ok"] and lstm["ok"] and snapshots["ok"]
+                  and dropout["ok"] and res_i["ok"] and lstm["ok"]
+                  and snapshots["ok"]
                   and k3_rowgroup and k3_resident
                   and all(np.isfinite(v) for v in losses.values())
                   and ckpt is not None and decode_ok and parity["ok"]
@@ -1674,12 +1834,14 @@ FRAME_STEP_TOL = 1e-4
 
 def counter_table() -> dict:
     """name -> (wrapper, its count); lstm_bwd_acc counts its three routes
-    apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu."""
+    apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu;
+    lstm_fwd its two by route name (``fwd_route``)."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
     return {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train, "launches"),
             "lstm_fwd": (ls.lstm_fwd, "launches"),
             "lstm_fwd_by_shape": (ls.lstm_fwd, "launches_by_shape"),
+            "lstm_fwd_by_route": (ls.lstm_fwd, "launches_by_route"),
             "lstm_bwd": (ls.lstm_bwd, "launches"),
             "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
             "lstm_bwd_acc_resident": (ls.lstm_bwd_acc, "resident_launches"),
@@ -1825,6 +1987,38 @@ def bnlstm_mse(train_cli, counters, flags, tr_list: str, cv_list: str,
     return out
 
 
+def mse_dropout_epoch(train_cli, flags, main_row, cv_batches) -> dict:
+    """--trainer=rnn --keep_prob=0.8 on the MSE epoch's batches: G leaves
+    the wavefront in training, K1 at G width forward on its resident
+    route and K2 backward for each of its 4 layers an iteration, no K4
+    train and no D; the cv pass (no dropout) on K4's decode mode as the
+    main path's; then K1 and K2 at every G-width shape it launched
+    against their twins."""
+    row, cv_row, launches, secs = cli_epoch(
+        train_cli, chain_counters(), flags("mse_dropout", "--keep_prob=0.8"))
+    steps = row["train_steps"]
+    k1_g = launches_at_units(launches["lstm_fwd_by_shape"], U)
+    checks = g_width_checks((launches,))
+    out = {"launches": launches, "k1_g_width_launches": k1_g,
+           "k1_g_width_per_iteration": k1_g / steps, "seconds": secs,
+           "speed": speed(row), "mse_speed": speed(main_row),
+           "losses": {k: v for k, v in row.items() if k.endswith("loss")},
+           "g_width_kernels_ok": all(r["ok"] for r in checks)}
+    out["ok"] = (finite_losses(row, cv_row)
+                 and steps == main_row["train_steps"]
+                 and k1_g == L * steps and k1_routes_ok(launches, k1_g, 0)
+                 and launches["lstm_bwd"] == L * steps
+                 and launches["wavefront_fwd_train"] == 0
+                 and launches["wavefront_fwd"] == cv_batches
+                 and launches["lstm_bwd_acc"] == 0
+                 and launches["lstm_bwd_acc_resident"] == 0
+                 and launches["lstm_bwd_acc_streaming"] == 0
+                 and out["g_width_kernels_ok"])
+    emit({"phase": "train_mse_dropout", **out,
+          "name, power.limit": card_name_and_limit()})
+    return out
+
+
 def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
     """--trainer=rnn --g_type=res_lstm_l through the CLI (G alone, MSE;
     recipes/run_rnn.sh's B=16 and lr): one epoch on the device feed (the
@@ -1884,6 +2078,7 @@ def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
              and launches32["lstm_bwd_acc_streaming"] == 0
              and launches32["lstm_bwd"] == 0 and launches32["lstm_fwd"] == 0
              and launches32["wavefront_fwd_train"] == steps32)
+    dropout = mse_dropout_epoch(train_cli, flags, row, cv_batches)
     parity = mse_step_parity(tr_list)
     bnlstm = bnlstm_mse(train_cli, counters, flags, tr_list, cv_list,
                         data_dir, work)
@@ -1907,10 +2102,11 @@ def phase_train_mse(work: str, prepared: dict, flagship) -> dict:
                "launches": launches32, "speed": speed(row32),
                "k3_resident_route": k3_ok},
            "parity_f32": parity, "decode": decode, "bnlstm": bnlstm,
-           "name, power.limit": card_name_and_limit()}
+           "dropout": dropout, "name, power.limit": card_name_and_limit()}
     out["ok"] = (main_ok and feeds_equal and k3_ok and parity["ok"]
                  and decode["ok"] and finite_losses(row, cv_row)
-                 and finite_losses(row32, cv32) and bnlstm["ok"])
+                 and finite_losses(row32, cv32) and bnlstm["ok"]
+                 and dropout["ok"])
     emit(out)
     return out
 
@@ -3473,10 +3669,11 @@ def chain_kernel(kernel: str, key: str, dtype_name: str, T_: int = CHAIN_T,
     k1_args = (xw, lens_t, prm["w_h"], prm["proj"], prm["bias"], prm["wi"],
                prm["wf"], prm["wo"])
     if kernel == "lstm_fwd":
+        grid = k1_grid(B_, U_, P_, cdt, sms)
         return timed(kernel, dtype_name, lambda: ls.lstm_fwd(*k1_args),
                      lambda: ls.lstm_fwd_reference(*k1_args), streams4,
-                     **extra,
-                     **rowgroup_grid(ls.rowgroup_plan(B_, U_, P_, cdt, sms)),
+                     check=k1_route_check(grid["design"], 6),
+                     **extra, **grid,
                      **k1_bound(U_, P_, B_, T_, lens, dtype_name))
     _, c_h, h_h, acts = ls.lstm_fwd_reference(*k1_args)
     dout = torch.from_numpy(
@@ -4356,8 +4553,9 @@ PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
 def kernel_entry(name, source, replaces, launches, launches_per, result,
                  bound_keys):
     extra = {k: result[k] for k in ("grid", "design", "streaming_ms",
-                                    "us_per_step", "walk_ms", "reduction_ms",
-                                    "walk_bound_ms", "reduction_bound_ms")
+                                    "rowgroup_ms", "us_per_step", "walk_ms",
+                                    "reduction_ms", "walk_bound_ms",
+                                    "reduction_bound_ms")
              if k in result}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4443,7 +4641,8 @@ def kernels_line(results: dict) -> dict:
                  "rsrgan_tpu/ops/pallas_lstm.py:364"),
                 (("lstm_fwd", "G", B),
                  "lstm_fwd (K1, G layer at U=760, P=257, B=16: res_lstm_l "
-                 "with --keep_prob < 1)", RESIDENT,
+                 "with --keep_prob < 1, res_lstm_i, rnn with --keep_prob "
+                 "< 1; on K4's resident grid at L = 1)", RESIDENT,
                  "rsrgan_tpu/ops/pallas_lstm.py:74"),
                 (("wavefront_fwd_train", "G_lstm", B),
                  "wavefront_fwd (train, save_acts=True; --g_type=lstm: L=3, "
@@ -4468,6 +4667,14 @@ def kernels_line(results: dict) -> dict:
             if "train_mse" in results and key in mse_runs:
                 entry["launches_mse"], entry["launches_mse_per"] = \
                     mse_runs[key]
+            if key == ("lstm_fwd", "G", B):
+                res_i = results["train"]["res_lstm_i"]
+                entry["launches_res_lstm_i"] = {
+                    "epoch": res_i["k1_g_width_launches"],
+                    "decode": res_i["decode"]["launches"]["lstm_fwd"]}
+                if "train_mse" in results:
+                    entry["launches_rnn_dropout"] = results["train_mse"][
+                        "dropout"]["k1_g_width_launches"]
             entries.append(entry)
     for entry in entries:
         entry["launches_chain"] = None  # shapes the chains do not run

@@ -15,7 +15,9 @@
 //   `_wavefront_kernel` (launched by `lstm_wavefront_fwd`, K4) in both of
 //   its modes: all L layers in one program, layer k running k steps behind
 //   layer 0, the top tap (decode) or, with `save`, every layer's tap, c, h
-//   and gate activations de-skewed as [L, T, B, *] (training).
+//   and gate activations de-skewed as [L, T, B, *] (training). At L = 1
+//   with the residual off it is also K1 where one layer's weights do not
+//   fit one SM (G width; K1's section below).
 //
 // What bounds them on the card: T (or T+L-1) dependent steps, each a pair
 // of small products at M = B rows (K2: dh_total·projᵀ and dgates·W_hᵀ, 31
@@ -365,6 +367,127 @@ __device__ void block_gemm(const float* A, const float* ws, const float* wg,
   }
 }
 
+// The f32 products of K1's layer on the wavefront kernel (L = 1), where
+// the block's gate columns are few (N = 4·NU) and K (P) is long, and the
+// partial h has K = the block's units. Operands as block_gemm's; each
+// gives an output's terms in a fixed order, so relaunches give the same
+// bits.
+//
+// block_gemm_f32_wide: a task is kWideRows rows of A against kWide weight
+// rows (N a multiple of kWide, A's rows padded to a multiple of
+// kWideRows); kSplit lanes split K in float4 steps, so each A value read
+// from shared memory feeds kWide products (block_gemm's f32 task reads A
+// once per product), then the shuffle tree. Tasks of 8 rows, not 16, so
+// that B=16 rows and 4·NU = 32 columns give every warp one.
+constexpr int kWide = 4;
+constexpr int kWideRows = 8;
+
+template <typename Epi>
+__device__ void block_gemm_f32_wide(const float* A, const float* ws,
+                                    const float* wg, int ld, int n_res,
+                                    int M, int N, int K, Epi epi) {
+  const int part = threadIdx.x % kSplit, group = threadIdx.x / kSplit;
+  constexpr int kGroups = kThreads / kSplit;
+  const int ntask = N / kWide;
+  const int tasks = ntask * ((M + kWideRows - 1) / kWideRows);
+  for (int base = 0; base < tasks; base += kGroups) {
+    const int task = base + group;
+    const int n0 = (task % ntask) * kWide;
+    const int m0 = (task / ntask) * kWideRows;
+    float acc[kWideRows][kWide];
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kWide; ++j) acc[r][j] = 0.0f;
+    if (task < tasks) {
+      const float* a = A + (size_t)m0 * ld;
+      const float* w[kWide];
+#pragma unroll
+      for (int j = 0; j < kWide; ++j)
+        w[j] = (n0 + j < n_res ? ws : wg) + (size_t)(n0 + j) * ld;
+      for (int k = 4 * part; k < K; k += 4 * kSplit) {
+        float4 wv[kWide];
+#pragma unroll
+        for (int j = 0; j < kWide; ++j) {
+          const float4* q = reinterpret_cast<const float4*>(w[j] + k);
+          wv[j] = n0 + j >= n_res ? __ldg(q) : *q;
+        }
+#pragma unroll
+        for (int r = 0; r < kWideRows; ++r) {
+          const float4 av =
+              *reinterpret_cast<const float4*>(a + (size_t)r * ld + k);
+#pragma unroll
+          for (int j = 0; j < kWide; ++j) {
+            acc[r][j] = fmaf(av.x, wv[j].x, acc[r][j]);
+            acc[r][j] = fmaf(av.y, wv[j].y, acc[r][j]);
+            acc[r][j] = fmaf(av.z, wv[j].z, acc[r][j]);
+            acc[r][j] = fmaf(av.w, wv[j].w, acc[r][j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kWide; ++j)
+#pragma unroll
+        for (int s = kSplit / 2; s > 0; s /= 2)
+          acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], s);
+    if (task < tasks) {
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+        for (int j = 0; j < kWide; ++j)
+          if ((r * kWide + j) % kSplit == part && m0 + r < M)
+            epi(m0 + r, n0 + j, acc[r][j]);
+    }
+  }
+}
+
+// block_gemm_direct: the partial h of a block that owns a few units (K of
+// 8 or so), where block_gemm's f32 task would split that K over 8 lanes
+// and shuffle 16 sums back. A task is one weight row n (held in registers,
+// kDirectK of K at a time) against kDirectRows rows of A; each output's
+// terms are added in k order (a fixed order). Consecutive threads take
+// consecutive n: their stores to a row-major C coalesce, they read A's
+// rows as one broadcast, and the weight rows they read lie an odd stride
+// apart (the plan's ld), one bank from the next.
+constexpr int kDirectRows = 8;
+constexpr int kDirectK = 8;
+
+template <typename W, typename Epi>
+__device__ void block_gemm_direct(const W* A, const W* ws, const W* wg,
+                                  int ld, int n_res, int M, int N, int K,
+                                  Epi epi) {
+  const int tasks = N * ((M + kDirectRows - 1) / kDirectRows);
+  for (int task = threadIdx.x; task < tasks; task += kThreads) {
+    const int n = task % N, m0 = (task / N) * kDirectRows;
+    const bool resident = n < n_res;
+    const W* w = (resident ? ws : wg) + (size_t)n * ld;
+    float acc[kDirectRows];
+#pragma unroll
+    for (int r = 0; r < kDirectRows; ++r) acc[r] = 0.0f;
+    for (int k0 = 0; k0 < K; k0 += kDirectK) {
+      float wr[kDirectK];
+#pragma unroll
+      for (int k = 0; k < kDirectK; ++k)
+        wr[k] = k0 + k >= K  ? 0.0f
+                : resident ? to_f(w[k0 + k])
+                           : load(w + k0 + k);
+#pragma unroll
+      for (int r = 0; r < kDirectRows; ++r) {
+        const W* a = A + (size_t)(m0 + r) * ld + k0;  // rows < Mp: padded
+#pragma unroll
+        for (int k = 0; k < kDirectK; ++k)
+          if (k0 + k < K) acc[r] = fmaf(to_f(a[k]), wr[k], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kDirectRows; ++r)
+      if (m0 + r < M) epi(m0 + r, n, acc[r]);
+  }
+}
+
 // Phase B's sum of one output: the n partials at src + j * stride (j =
 // 0..n-1, one per block of the split) are shared by `tpi` threads (a
 // power of two up to 32, neighbouring lanes); the one numbered `part`
@@ -628,7 +751,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 struct FwdParams {
   const void* xw1;     // [T, B, G] W, layer-1 input projection
-  const float* x;      // [T, B, P] raw inputs (layer-1 residual)
+  const float* x;      // [T, B, P] raw inputs (layer-1 residual; may be
+                       //   null with the residual off, never read then)
   const int* lengths;  // [B]
   const void* wg_pk;   // [L*nbl][NG][ldw] W: row g*NU + u of block (k, j) =
                        //   [W_h[k][:, col] | W_x[k-1][:, col] (k >= 1) | 0],
@@ -706,7 +830,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (t >= 0 && t < p.T) {
       __syncthreads();
       // A = [h_k | in_k | 0] for all rows, rounded to W (layer 0 reads its
-      // input projection from xw1: its in-part is zero)
+      // input projection from xw1: its in-part is zero; at L = 1 the plan
+      // drops that part, K = Kp = P padded, and A is [h | 0])
       const float* hk = p.h + (size_t)k * B * P;
       const float* ink = in_cur + (size_t)k * B * P;
       const int n_bp = B * P;
@@ -724,7 +849,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (e >= n_bp) break;
           const int b = row_of(e, P, inv_p), q = e - b * P;
           s_a[b * p.ldw + q] = to_w<W>(vh[j]);
-          s_a[b * p.ldw + P + q] = to_w<W>(vi[j]);
+          if (L > 1) s_a[b * p.ldw + P + q] = to_w<W>(vi[j]);
         }
       }
       if (k == 0 && t + 1 < p.T)  // the next step's input projection
@@ -735,8 +860,20 @@ __global__ void __launch_bounds__(kThreads, 1)
                         nu * sizeof(W));
       __syncthreads();
       SECTION_END(8);
-      block_gemm(s_a, s_wg, g_wg, p.ldw, p.n_res_g, B, p.Mp, NG, NG, p.Kp,
-                 [&](int m, int n, float v) { s_gate[m * NG + n] = v; });
+      const auto gate_out = [&](int m, int n, float v) {
+        s_gate[m * NG + n] = v;
+      };
+      if constexpr (std::is_same<W, float>::value) {
+        if (L == 1)  // K1's layer: few gate columns, a long K
+          block_gemm_f32_wide(s_a, s_wg, g_wg, p.ldw, p.n_res_g, B, NG, p.Kp,
+                              gate_out);
+        else
+          block_gemm(s_a, s_wg, g_wg, p.ldw, p.n_res_g, B, p.Mp, NG, NG,
+                     p.Kp, gate_out);
+      } else {
+        block_gemm(s_a, s_wg, g_wg, p.ldw, p.n_res_g, B, p.Mp, NG, NG, p.Kp,
+                   gate_out);
+      }
       __syncthreads();
       SECTION_END(9);
       // the peephole cell update; c stays in the block for the whole launch
@@ -774,8 +911,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       SECTION_END(10);
       // this block's partial of h = m · proj over all P columns
       float* part = p.partial + (size_t)blk * B * P;
-      block_gemm(s_m, s_wp, g_wp, p.ldm, p.n_res_p, B, p.Mp, P, p.Np, p.Km,
-                 [&](int m, int n, float v) { part[(size_t)m * P + n] = v; });
+      const auto put = [&](int m, int n, float v) {
+        part[(size_t)m * P + n] = v;
+      };
+      if (std::is_same<W, float>::value && L == 1)  // K = the block's units
+        block_gemm_direct(s_m, s_wp, g_wp, p.ldm, p.n_res_p, B, P, nu, put);
+      else
+        block_gemm(s_m, s_wp, g_wp, p.ldm, p.n_res_p, B, p.Mp, P, p.Np, p.Km,
+                   put);
     }
     SECTION_END(11);
     grid.sync();
@@ -826,6 +969,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---------------------------------------------------------------------------
 // K1: the single-layer forward, one block per group of at most 16 rows.
+//
+// This is K1's design where the whole layer fits one SM's shared memory
+// (the D layer; ops/lstm_seq.py `fwd_route`). Where it does not (G width:
+// W_h alone is 1.56 MB in bf16), K1 runs on K4's kernel above at L = 1
+// with the residual off, whose save streams at L = 1 are K1's: its grid
+// (at G width 48 blocks of 16 units in bf16, 95 of 8 in f32) spreads W_h
+// and proj over as many SMs, each slice resident for the whole walk, and
+// a single layer's gate product drops the dead in-part (K = P padded);
+// in f32 its two products take block_gemm_f32_wide and block_gemm_direct.
+// This kernel at G width held none of W_h in shared memory and re-read it
+// from L2 in every one of its 16-32 blocks at every step (~83 µs a step
+// in bf16; PERF.md).
 //
 // Replaces rsrgan_tpu/ops/pallas_lstm.py `_fwd_kernel` (launched by
 // `_fwd_pallas`): one layer over T from a precomputed input projection xw,

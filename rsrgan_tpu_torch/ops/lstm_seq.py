@@ -6,10 +6,14 @@ PyTorch twin in this module; a wrapper runs its twin for CPU tensors and
 launches its kernel for CUDA tensors, or raises:
 
 * ``lstm_fwd`` (K1, ``_fwd_kernel``): one layer over T from a precomputed
-  input projection. Its kernel is the row-group one of
-  ``csrc/resident.cu``: one block per group of at most 16 rows holds the
-  whole layer's W_h and proj in shared memory and walks all T steps with
-  block barriers only, as ``rowgroup_plan`` lays it out.
+  input projection, on one of two kernels of ``csrc/resident.cu`` that
+  the plans decide (``fwd_route``): where the layer's weights fit one
+  block (the D layer) the row-group kernel, one block per group of at
+  most 16 rows holding the whole layer's W_h and proj in shared memory
+  and walking all T steps with block barriers only, as ``rowgroup_plan``
+  lays it out; elsewhere (G width) K4's resident grid at L = 1 without the
+  residual (``ops/wavefront.py`` ``resident_plan``), whose blocks each
+  hold a slice of W_h and proj for the whole walk.
 * ``lstm_bwd`` (K2, ``_bwd_kernel``): the reverse walk over the saved gate
   activations; emits dgates (dxw), masked m and masked dh_total. The
   weight gradients are reduced outside (``lstm_weight_grads``). Its
@@ -50,7 +54,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from rsrgan_tpu_torch.ops import _build, resident
+from rsrgan_tpu_torch.ops import _build, resident, wavefront
 
 # Rows from which the backward reduces its weight gradients inside the
 # kernel (K3) rather than in products outside (K2), as
@@ -293,6 +297,42 @@ def _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
     return (out,) + saved
 
 
+def _launch_fwd_resident(xw, lengths, w_h, proj, bias, wi, wf, wo,
+                         save_acts):
+    """One launch of K1 on K4's resident grid (L = 1, residual off:
+    ``wavefront._launch_resident``) on CUDA tensors: (out, c_hist, h_hist,
+    acts), or (out, None, None, None) without ``save_acts``."""
+    _check_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo)
+    P, G = w_h.shape
+    stack = (w_h.new_empty((0, P, G)), w_h[None], proj[None], bias[None],
+             wi[None], wf[None], wo[None])
+    saved = wavefront._launch_resident(xw, lengths, None, *stack,
+                                       residual=False, save_acts=save_acts)
+    if save_acts:
+        return tuple(t[0] for t in saved)
+    return saved, None, None, None
+
+
+def fwd_route(B: int, U: int, P: int, dtype: torch.dtype, sms: int) -> str:
+    """K1's kernel at these sizes on a card with ``sms`` SMs, a pure
+    function of the shape: "rowgroup" where the layer's bf16 weights all
+    fit one row-group block (``rowgroup_plan``: the D layer, in either
+    dtype); else "resident" where K4's grid holds the layer at L = 1
+    (``wavefront.resident_plan``: G width). Raises ValueError, with the
+    shape, where neither fits."""
+    try:
+        if rowgroup_plan(B, U, P, torch.bfloat16, sms).weights_resident():
+            return "rowgroup"
+    except ValueError:
+        pass
+    try:
+        wavefront.resident_plan(B, 1, U, P, dtype, sms)
+    except ValueError as e:
+        raise ValueError(f"no K1 kernel for B={B} U={U} P={P} {dtype}: "
+                         f"{e}") from None
+    return "resident"
+
+
 def shape_key(proj, rows: int) -> str:
     """The key of a launch count by shape: the layer's U and P (``proj``
     is [U, P]) and its rows, the sizes that choose the kernel's plan."""
@@ -301,25 +341,34 @@ def shape_key(proj, rows: int) -> str:
 
 def lstm_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts=True):
     """K1 (arguments and results as ``lstm_fwd_reference``). CPU tensors
-    take the twin; CUDA tensors launch the row-group kernel of
-    csrc/resident.cu (``rowgroup_plan``) or raise. With
-    ``save_acts=False`` only ``out`` is computed (the rest is None)."""
+    take the twin; CUDA tensors launch the kernel ``fwd_route`` names (the
+    row-group kernel of csrc/resident.cu, ``rowgroup_plan``, or K4's
+    resident grid at L = 1) or raise; each launch is counted in total, by
+    shape and by route. With ``save_acts=False`` only ``out`` is computed
+    (the rest is None)."""
     if xw.device.type == "cpu":
         return lstm_fwd_reference(xw, lengths, w_h, proj, bias, wi, wf, wo,
                                   save_acts)
     if xw.device.type != "cuda":
         raise ValueError(f"no LSTM forward kernel for device {xw.device}")
-    out = _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
-                               save_acts)
+    B = xw.shape[1]
+    U, P = proj.shape
+    route = fwd_route(B, U, P, w_h.dtype, resident.sm_count(xw.device))
+    launch = (_launch_fwd_rowgroup if route == "rowgroup"
+              else _launch_fwd_resident)
+    out = launch(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts)
     lstm_fwd.launches += 1
-    key = shape_key(proj, xw.shape[1])
+    key = shape_key(proj, B)
     lstm_fwd.launches_by_shape[key] = (
         lstm_fwd.launches_by_shape.get(key, 0) + 1)
+    lstm_fwd.launches_by_route[route] = (
+        lstm_fwd.launches_by_route.get(route, 0) + 1)
     return out
 
 
 lstm_fwd.launches = 0  # kernel launches in this process
 lstm_fwd.launches_by_shape = {}  # the same launches by shape_key
+lstm_fwd.launches_by_route = {}  # the same launches by fwd_route's name
 
 
 # ---------------------------------------------------------------------------

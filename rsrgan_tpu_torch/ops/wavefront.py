@@ -11,6 +11,11 @@ them) and ``lstm_wavefront_fwd_reference`` for CPU tensors; they never
 fall back from one to the other. Each counts its own launches. A shape
 the plan cannot hold raises, with the shape in the message.
 
+``_launch_resident`` at L = 1 without the residual is also K1's kernel
+where a layer's weights do not fit one SM (G width: ``ops/lstm_seq.py``
+``fwd_route``), launched and counted by ``lstm_fwd``, not by the two
+wrappers here.
+
 ``_launch`` runs the earlier kernel, ``csrc/wavefront_fwd.cu``, which
 streams its weights from L2; no path of the port calls it, and
 ``chip_smoke.py`` times it beside the kernels that replaced it (K4 here,
@@ -25,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -107,8 +112,10 @@ def _library() -> ctypes.CDLL:
 
 
 def _check_inputs(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo):
+    """Shapes, dtypes and devices of the kernels' arguments; ``x`` may be
+    None (the resident kernel without the residual never reads it)."""
     T, B, G = xw1.shape
-    L, P, U = wh.shape[0], x.shape[2], G // 4
+    L, P, U = wh.shape[0], wh.shape[1], G // 4
     cdt = wh.dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"weights must be float32 or bfloat16, got {cdt}")
@@ -121,11 +128,13 @@ def _check_inputs(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo):
                bias=bias, wi=wi, wf=wf, wo=wo)
     for name, (shape, dtype) in want.items():
         t = got[name]
+        if t is None and name == "x":
+            continue
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype} {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {x.device}")
+        if t.device != xw1.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {xw1.device}")
     if T < 1 or B < 1 or G % 4:
         raise ValueError(f"bad sizes T={T} B={B} G={G}")
 
@@ -180,11 +189,14 @@ class WavefrontPlan:
     and the (layer, column) pairs [pair_bounds[i], pair_bounds[i+1]) of
     the L·P pairs (pair = layer·P + column) in phase B. Products (A rows
     padded to Mp): the gates [h | in]·[W_h; W_x] with K = Kp = 2P padded
-    and the partial h = m·proj with K = Km = NU padded and Np = P padded
-    output rows; ldw and ldm are the row strides of the packed slices and
-    of their A operands. Phase B sums a pair's nbl partials with tpi
-    threads (``resident.threads_per_sum``). ``offsets`` is the
-    shared-memory layout, ``n_res_*`` the weight rows held there."""
+    (at L = 1, K1's layer, h·W_h alone with K = Kp = P padded: a single
+    layer has no in-part) and the partial h = m·proj with K = Km = NU
+    padded and Np = P padded output rows (f32 at L = 1: one output a
+    thread over the block's units, rows ldm = NU + 1 apart); ldw and ldm
+    are the row strides of the packed slices and of their A operands.
+    Phase B sums a pair's nbl partials with tpi threads
+    (``resident.threads_per_sum``). ``offsets`` is the shared-memory
+    layout, ``n_res_*`` the weight rows held there."""
     B: int
     L: int
     U: int
@@ -214,29 +226,50 @@ class WavefrontPlan:
         return self.n_res_g == self.NG and self.n_res_p == self.Np
 
 
+# Units a block at L = 1 (K1's layer at G width): a step's time there is
+# the latencies of staging h, of the partial h's stores and of phase B's
+# sums over the blocks, which fall with fewer blocks, against the block's
+# own gate product, which grows with its units; bf16's tiles take 16 units
+# (the projection's K in one 16-wide step), f32's products on CUDA cores
+# fewer (tools/time_k1_plans.py on the H100; PERF.md).
+SINGLE_LAYER_UNITS = {torch.bfloat16: 16, torch.float32: 8}
+
+
 def resident_plan(B: int, L: int, U: int, P: int, dtype: torch.dtype,
-                  sms: int) -> WavefrontPlan:
-    """K4's grid on a card with ``sms`` SMs: sms // L blocks per layer (at
-    most one per unit), units and (layer, column) pairs split into
-    balanced contiguous slices. Raises ValueError, with the shape, where no
-    layout fits."""
+                  sms: int, nbl: Optional[int] = None) -> WavefrontPlan:
+    """K4's grid on a card with ``sms`` SMs: ``nbl`` blocks per layer
+    (default sms // L, and at L = 1 enough for SINGLE_LAYER_UNITS units a
+    block; at most one per unit), units and (layer, column) pairs split
+    into balanced contiguous slices. Raises ValueError, with the shape,
+    where no layout fits."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"weights must be float32 or bfloat16, got {dtype}")
     wb = 2 if dtype == torch.bfloat16 else 4
     shape = f"B={B} L={L} U={U} P={P} {dtype}"
-    nbl = min(sms // L, U) if L >= 1 else 0
+    most = sms // L if L >= 1 else 0
+    if nbl is None:
+        nbl = -(-U // SINGLE_LAYER_UNITS[dtype]) if L == 1 else most
+    nbl = min(nbl, most, U)
     if min(B, U, P, nbl) < 1:
         raise ValueError(f"no resident K4 plan for {shape} on {sms} SMs")
     units = resident.balanced_bounds(U, nbl)
     NU = resident.round_up(max(b - a for a, b in zip(units, units[1:])), 2)
-    Kp, Km = resident.round_up(2 * P, 16), resident.round_up(NU, 16)
+    Kp = resident.round_up(P if L == 1 else 2 * P, 16)
+    Km = resident.round_up(NU, 16)
     ldw, ldm = Kp + 8, Km + 8
+    # f32 at L = 1 reads the projection slice one output a thread, threads
+    # on consecutive rows (block_gemm_direct): an odd row stride puts them
+    # in different banks; rows resident in fours keep the copy in 16 bytes
+    direct = L == 1 and wb == 4
+    if direct:
+        ldm = NU + 1
     Np, Mp = resident.round_up(P, 8), resident.round_up(B, 16)
     try:
         offsets, rows, smem = resident.layout(
             {"a": Mp * ldw * wb, "gate": B * 4 * NU * 4, "m": Mp * ldm * wb,
              "c": B * NU * 4, "k": (7 * NU + B) * 4},
-            [("wp", ldm * wb, Np), ("wg", ldw * wb, 4 * NU)])
+            [("wp", ldm * wb, Np), ("wg", ldw * wb, 4 * NU)],
+            multiple={"wp": 4} if direct else None)
     except ValueError as e:
         raise ValueError(f"no resident K4 plan for {shape}: {e}") from None
     pairs = resident.balanced_bounds(L * P, L * nbl)
@@ -250,9 +283,9 @@ def resident_plan(B: int, L: int, U: int, P: int, dtype: torch.dtype,
 def pack_wavefront_weights(wx, wh, proj, plan: WavefrontPlan):
     """Each block's weight slices in the layout its products read:
     wg_pk [L, nbl, NG, ldw] (row g·NU + u of block (k, j) = [W_h[k][:, c] |
-    W_x[k-1][:, c] | 0], c = g·U + u0 + u, zero W_x part for layer 0) and
-    wp_pk [L, nbl, Np, ldm] (row p, column u = proj[k][u0 + u, p]); zero
-    in every pad."""
+    W_x[k-1][:, c] | 0], c = g·U + u0 + u, zero W_x part for layer 0, none
+    at L = 1) and wp_pk [L, nbl, Np, ldm] (row p, column u =
+    proj[k][u0 + u, p]); zero in every pad."""
     L, U, P, NU, nbl = plan.L, plan.U, plan.P, plan.NU, plan.nbl
     idx = resident.unit_index(plan.unit_bounds, NU, U, wh.device)
 
@@ -261,10 +294,11 @@ def pack_wavefront_weights(wx, wh, proj, plan: WavefrontPlan):
         return w4[:, :, :, idx].permute(0, 3, 2, 4, 1).reshape(
             L, nbl, 4 * NU, P)
 
-    wx_all = torch.cat([wx.new_zeros((1,) + tuple(wh.shape[1:])), wx])
     wg_pk = wh.new_zeros((L, nbl, plan.NG, plan.ldw))
     wg_pk[..., :P] = gate_cols(wh)
-    wg_pk[..., P:2 * P] = gate_cols(wx_all)
+    if L > 1:
+        wx_all = torch.cat([wx.new_zeros((1,) + tuple(wh.shape[1:])), wx])
+        wg_pk[..., P:2 * P] = gate_cols(wx_all)
     proj_pad = torch.cat([proj, proj.new_zeros((L, 1, P))], 1)  # [L, U+1, P]
     wp_pk = wh.new_zeros((L, nbl, plan.Np, plan.ldm))
     wp_pk[:, :, :P, :NU] = proj_pad[:, idx].transpose(2, 3)
@@ -272,15 +306,22 @@ def pack_wavefront_weights(wx, wh, proj, plan: WavefrontPlan):
 
 
 def _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
-                     residual, save_acts):
+                     residual, save_acts, plan=None):
     """One launch of K4's resident kernel on CUDA tensors: the top tap,
-    or with ``save_acts`` the (taps, c_hist, h_hist, acts) streams."""
+    or with ``save_acts`` the (taps, c_hist, h_hist, acts) streams. ``x``
+    is read only by the residual and may be None without it (K1's layer,
+    ``ops/lstm_seq.py``, launches it so at L = 1). ``plan``: another
+    ``resident_plan`` than the default one for this shape (timing
+    tools)."""
+    if x is None and residual:
+        raise ValueError("the residual wiring needs the raw inputs x")
     _check_inputs(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo)
     T, B, G = xw1.shape
-    L, P, U = wh.shape[0], x.shape[2], G // 4
-    cdt, dev = wh.dtype, x.device
+    L, P, U = wh.shape[0], wh.shape[1], G // 4
+    cdt, dev = wh.dtype, xw1.device
     with torch.cuda.device(dev):
-        plan = resident_plan(B, L, U, P, cdt, resident.sm_count(dev))
+        if plan is None:
+            plan = resident_plan(B, L, U, P, cdt, resident.sm_count(dev))
         wg_pk, wp_pk = pack_wavefront_weights(wx, wh, proj, plan)
         bounds = torch.tensor(plan.unit_bounds + plan.pair_bounds,
                               dtype=torch.int32, device=dev)
@@ -299,8 +340,9 @@ def _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
             out_ptrs = [y.data_ptr()] + [None] * 4
         o = plan.offsets
         params = resident.FwdParams(
-            *(t.data_ptr() for t in (xw1, x, lengths, wg_pk, wp_pk, bias, wi,
-                                     wf, wo, bounds, h, inbuf, partial)),
+            xw1.data_ptr(), None if x is None else x.data_ptr(),
+            *(t.data_ptr() for t in (lengths, wg_pk, wp_pk, bias, wi, wf, wo,
+                                     bounds, h, inbuf, partial)),
             *out_ptrs, T, B, L, U, P, int(bool(residual)), int(save_acts),
             plan.nbl, plan.NU, plan.NG, plan.Kp, plan.ldw, plan.Np, plan.Km,
             plan.ldm, plan.Mp, plan.n_res_g, plan.n_res_p, plan.tpi,

@@ -5,11 +5,13 @@
 Builds ``csrc/resident.cu`` with ``-DRESIDENT_PROFILE`` (its section
 timers: globaltimer nanoseconds per section, in block 0 and in the last
 block, each section closed by a block barrier, which slows a step by a few
-per cent) and runs, at chip_smoke.py's shapes in bf16 with every row at
-full length: K4 decode at B = 1, 16 and 64 (T=512), K4 train (B=16,
+per cent) and runs, at chip_smoke.py's shapes in bf16 (one case also
+in f32) with every row at full length: K4 decode at B = 1, 16 and 64 (T=512), K4 train (B=16,
 T=500), K2 at G width (U=760, P=257) and at D width (U=256, P=40), B=16,
 T=500, K1 (the row-group kernel) at D width with 16 and 32 rows,
-T=500, in training mode, and K3 (the row-group walk, timed with its
+T=500, in training mode, K1 at G width (U=760, P=257) with 16 and 32
+rows on its resident route (K4's grid at L = 1: K4's sections), T=500, in
+training mode, in bf16 and f32, and K3 (the row-group walk, timed with its
 reduction) at D width with 32 and 64 rows, T=500, and (K2's resident walk
 in acc mode, timed with its reduction) at G width, B=32. Prints the card's
 ``name, power.limit`` and one
@@ -170,6 +172,18 @@ def main() -> int:
             # sections are the walk's
             measure(lib, f"K3 U=256 P=40 B={B} T=500",
                     lambda: ls.lstm_bwd_acc(*bwd), 500, K3_SECTIONS, 0)
+    # K1 at G width, as dropout and res_lstm_i run it: the resident route
+    # (K4's kernel at L = 1, so K4's sections), bf16 and f32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt in (cdt, torch.float32):
+        for B in (16, 32):
+            largs = stack_args(rng, 1, U, P, B, 500, dt)
+            fwd = (largs[0], largs[1], largs[4][0], largs[5][0],
+                   largs[6][0], largs[7][0], largs[8][0], largs[9][0])
+            assert ls.fwd_route(B, U, P, dt, sms) == "resident"
+            measure(lib, f"K1 U={U} P={P} B={B} T=500 {dt} (resident "
+                    f"route, {wf.resident_plan(B, 1, U, P, dt, sms).nbl} "
+                    "blocks)", lambda: ls.lstm_fwd(*fwd), 500, K4_SECTIONS, 8)
     return 0
 
 

@@ -292,8 +292,10 @@ def test_rowgroup_lstm_fwd(cuda_device, cdt, rows, U_, P_, save_acts):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_rowgroup_lstm_fwd_g_width(cuda_device, cdt):
-    """K1 at G's width (U=760, P=257), where the packed weights only partly
-    fit in shared memory and the rest is read from global memory."""
+    """K1's row-group kernel at G's width (U=760, P=257), where the packed
+    weights only partly fit in shared memory and the rest is read from
+    global memory (``lstm_fwd`` takes the resident route there: the
+    row-group kernel is launched directly)."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     U_, P_, rows = 760, 257, 16
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
@@ -309,18 +311,21 @@ def test_rowgroup_lstm_fwd_g_width(cuda_device, cdt):
     args = (u(T, rows, 4 * U_, scale=1.0).to(cdt), lens,
             u(P_, 4 * U_).to(cdt), u(U_, P_).to(cdt), u(4 * U_), u(U_),
             u(U_), u(U_))
-    got = ls.lstm_fwd(*args)
+    got = ls._launch_fwd_rowgroup(*args, save_acts=True)
     assert_close(got, ls.lstm_fwd_reference(*args), cdt)
-    assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_fwd(*args)))
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, ls._launch_fwd_rowgroup(*args, save_acts=True)))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 3, 16, 33])
+@pytest.mark.parametrize("rows", [1, 3, 16, 33, 64])
 def test_rowgroup_lstm_fwd_g_width_rows(cuda_device, cdt, rows):
-    """K1 at G's width (U=760, P=257) as dropout runs it, one row a block,
-    at 1, 3, 16 (B=16) and 33 rows, each with a zero-length row among
-    them (LENS), Glorot-scaled weights; one launch counted per call; two
+    """K1 at G's width (U=760, P=257) as dropout runs it, at 1, 3, 16
+    (B=16), 33 and 64 rows, each with a zero-length row among them (LENS),
+    Glorot-scaled weights: ``lstm_fwd`` takes the resident route, one
+    launch counted per call in total and by route; the row-group kernel
+    (one row a block), launched directly, holds to the same twin; two
     launches give the same bits."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     U_, P_ = 760, 257
@@ -336,10 +341,99 @@ def test_rowgroup_lstm_fwd_g_width_rows(cuda_device, cdt, rows):
     args = (u(T, rows, 4 * U_, s=1.0).to(cdt), lens, u(P_, 4 * U_).to(cdt),
             u(U_, P_).to(cdt), u(4 * U_), u(U_), u(U_), u(U_))
     before = ls.lstm_fwd.launches
+    resident_before = ls.lstm_fwd.launches_by_route.get("resident", 0)
     got = ls.lstm_fwd(*args)
     assert ls.lstm_fwd.launches == before + 1
-    assert_close(got, ls.lstm_fwd_reference(*args), cdt)
+    assert ls.lstm_fwd.launches_by_route["resident"] == resident_before + 1
+    want = ls.lstm_fwd_reference(*args)
+    assert_close(got, want, cdt)
     assert all(torch.equal(a, b) for a, b in zip(got, ls.lstm_fwd(*args)))
+    rowgroup = ls._launch_fwd_rowgroup(*args, save_acts=True)
+    assert_close(rowgroup, want, cdt)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rowgroup, ls._launch_fwd_rowgroup(*args, save_acts=True)))
+
+
+# ---------------------------------------------------------------------------
+# K1 on K4's resident grid at L = 1 (fwd_route's "resident")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 3, 33, 64])
+@pytest.mark.parametrize("U_,P_", [(200, 40), (13, 9)])
+@pytest.mark.parametrize("save_acts", [True, False])
+def test_resident_lstm_fwd(cuda_device, cdt, rows, U_, P_, save_acts):
+    """K1's resident route launched directly at odd shapes (U=200 over
+    132 blocks, U=13 over 13; P=9 and 40, so K = P padded to 16 or 48 at
+    L = 1, not 2P), 1-64 rows with a zero-length row, with and without
+    the saved streams; two launches give the same bits."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import resident
+    from rsrgan_tpu_torch.ops import wavefront as wf
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = wf.resident_plan(rows, 1, U_, P_, cdt, sms)
+    assert plan.Kp == resident.round_up(P_, 16) < resident.round_up(2 * P_,
+                                                                     16)
+    rng = np.random.default_rng(60 + rows + U_)
+    scale = min(0.5, (6 / (4 * U_ + P_)) ** 0.5)
+
+    def u(*shape, s=scale):
+        return torch.tensor(rng.uniform(-s, s, shape), dtype=torch.float32,
+                            device=cuda_device)
+
+    lens = torch.tensor((LENS * rows)[:rows], dtype=torch.int32,
+                        device=cuda_device)
+    args = (u(T, rows, 4 * U_, s=1.0).to(cdt), lens, u(P_, 4 * U_).to(cdt),
+            u(U_, P_).to(cdt), u(4 * U_), u(U_), u(U_), u(U_))
+    got = ls._launch_fwd_resident(*args, save_acts=save_acts)
+    want = ls.lstm_fwd_reference(*args, save_acts=save_acts)
+    if not save_acts:
+        assert got[1:] == (None, None, None)
+        got, want = got[:1], want[:1]
+    assert_close(got, want, cdt)
+    again = ls._launch_fwd_resident(*args, save_acts=save_acts)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("U_,P_,route", [(256, 40, "rowgroup"),
+                                         (760, 257, "resident"),
+                                         (760, 280, "resident")])
+@pytest.mark.parametrize("save_acts", [True, False])
+def test_lstm_fwd_counts_its_route(cuda_device, cdt, U_, P_, route,
+                                   save_acts):
+    """``lstm_fwd`` at the D and G widths, 16 rows: the route
+    ``fwd_route`` names, one launch counted in total, by shape and by
+    that route; the result held against the twin."""
+    from rsrgan_tpu_torch.ops import lstm_seq as ls
+    rows = 16
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert ls.fwd_route(rows, U_, P_, cdt, sms) == route
+    rng = np.random.default_rng(U_ + P_)
+    scale = (6 / (4 * U_ + P_)) ** 0.5
+
+    def u(*shape, s=scale):
+        return torch.tensor(rng.uniform(-s, s, shape), dtype=torch.float32,
+                            device=cuda_device)
+
+    lens = torch.tensor((LENS * rows)[:rows], dtype=torch.int32,
+                        device=cuda_device)
+    args = (u(T, rows, 4 * U_, s=1.0).to(cdt), lens, u(P_, 4 * U_).to(cdt),
+            u(U_, P_).to(cdt), u(4 * U_), u(U_), u(U_), u(U_))
+    key = ls.shape_key(args[3], rows)
+    before = (ls.lstm_fwd.launches, ls.lstm_fwd.launches_by_shape.get(key, 0),
+              dict(ls.lstm_fwd.launches_by_route))
+    got = ls.lstm_fwd(*args, save_acts=save_acts)
+    assert ls.lstm_fwd.launches == before[0] + 1
+    assert ls.lstm_fwd.launches_by_shape[key] == before[1] + 1
+    want_routes = dict(before[2])
+    want_routes[route] = want_routes.get(route, 0) + 1
+    assert ls.lstm_fwd.launches_by_route == want_routes
+    want = ls.lstm_fwd_reference(*args, save_acts=save_acts)
+    n = 4 if save_acts else 1
+    assert_close(got[:n], want[:n], cdt)
 
 
 @pytest.mark.cuda

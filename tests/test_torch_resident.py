@@ -62,7 +62,10 @@ def test_bwd_plan_partitions(B, U, P, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wavefront_plan_partitions(B, L, U, P, dtype):
     plan = wf.resident_plan(B, L, U, P, dtype, H100_SMS)
-    assert plan.blocks <= H100_SMS and plan.nbl == min(H100_SMS // L, U)
+    # L = 1 (K1's layer) takes SINGLE_LAYER_UNITS units a block
+    nbl = (-(-U // wf.SINGLE_LAYER_UNITS[dtype]) if L == 1
+           else H100_SMS // L)
+    assert plan.blocks <= H100_SMS and plan.nbl == min(nbl, U)
     assert len(owners(plan.unit_bounds)) == U
     assert len(owners(plan.pair_bounds)) == L * P    # each (layer, col) once
     assert plan.NU % 2 == 0 and plan.NG == 4 * plan.NU
