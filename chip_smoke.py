@@ -27,8 +27,11 @@ JSON line each; any failure ends the run non-zero:
    checked by lstm_fwd's count by route; K2 at G's
    width (16 rows) and D's (16 rows); K3 at D's width (the row-group walk
    and its reduction) at 32 and 64 rows, and at G's width at B=32, 64,
-   128 and 256 (K2's resident walk in acc mode and the reduction, the
-   walk and the reduction also timed apart; csrc/lstm_bwd.cu for f32 past
+   128 and 256 (K2's resident walk in acc mode and the reduction), the
+   walk and the reduction also timed apart, and the reduction's sums by
+   the library beside it (``lstm_weight_grads``'s two f32 einsums on the
+   walk's own streams, and a bf16-operand ``torch.matmul`` of the same
+   shapes; on the resident and row-group routes); csrc/lstm_bwd.cu for f32 past
    48 rows, where it is faster, the resident walk timed beside where its
    plan fits), each on the route bwd_acc_route names, checked by its
    launch count; the redesigned kernels (K4, K2, K1, K3) also for
@@ -208,14 +211,29 @@ JSON line each; any failure ends the run non-zero:
    float waves clipped to 16 bits), the library's float waves pooled
    against single within 1e-5 of the peak and against the offline chain
    (f32 --decode, then resynthesize) above 35 dB SNR.
-15. proxy — ``tools.proxy_asr.main`` on the card over
+15. tools — the port's measurement tools (rsrgan_tpu_torch/tools), each
+   as a process on the card with its launch counts set to 0 before it
+   and written after it (``counted_tool``): ``kernel_bench`` and
+   ``profile_step`` at their defaults (full width, B=16, T=500, bf16),
+   ``serve_bench`` at 20 chunks a configuration, ``io_bench`` at its
+   defaults; each must exit 0, print the card's ``name, power.limit``
+   first and then the JAX tool's lines (every segment's ms; the
+   profile's 10 step ranges, busy share, the five hand kernels of the
+   flagship step as kernel rows and the host time by port function;
+   the latency grid, with no hand-kernel launch; every io stage's
+   rate), all on a ``tools`` line. Every shape the kernel tools
+   launched (each wrapper's ``launches_by_shape``) is held against its
+   twin in f32 and bf16: anew (T=500, ragged rows) where no earlier
+   phase (kernel, kernels_train, chain, parallel) held it, and listed
+   with ``launches_tools``.
+16. proxy — ``tools.proxy_asr.main`` on the card over
    tests/test_proxy.py's separable corpus and its noisy twin, with that
    test's gates (clean FER < 0.25, noisy FER > clean + 0.1, SER <= FER +
    0.35), TF32 off after, its train frames/s, no hand kernel; then one
    f32 step at hidden 192 on the card against the same step on the CPU
    from the same weights: gradients per tensor and the post-step
    parameters, max |diff| / max |ref| <= 1e-5.
-16. experiments — the experiment recipes through
+17. experiments — the experiment recipes through
    ``rsrgan_tpu_torch.tools.experiments`` at full width (res_lstm_l and
    LSTM-D, bf16, --batch_size=8), each with TF32 turned on before it and
    found off after, every launch count set to 0 just before each stage
@@ -230,16 +248,21 @@ JSON line each; any failure ends the run non-zero:
    two calls (stages 0-3, then 4-8 with an RSRGAN_FEED_HBM_BUDGET that
    cuts the train tables into >= EXP_REF_SHARDS shards: more than one
    residency a system); ``synth_quality`` at its own size (B=4, 24
-   iterations, its 0.5 x mean gate). Train stages on K4 train, K1 (not
-   the MSE trainer's), K2; decode stages on K4 decode; K3 nowhere. Then
-   each kernel at every shape the recipes launched (T=EXP_T, ragged
-   rows) against its twin, f32 and bf16.
+   iterations, its 0.5 x mean gate); ``micro`` (recipes/run_micro.sh
+   stages -1 to 3 at its own size: 24 utterances, B=2, up to 2 epochs;
+   its check: 6 decoded utterances, 40-dim, finite). Train stages on K4
+   train, K1 (not the MSE trainer's), K2; decode stages on K4 decode;
+   K3 nowhere. Then each kernel at every shape the recipes launched
+   (T=EXP_T, ragged rows) against its twin, f32 and bf16.
 
 Then a "timing" line (each phase's wall seconds and the total), a
-{"kernels": [...]} line (one entry more per shape the chains,
-the data-parallel ranks and the experiment recipes launched, with
-``launches_chain``, ``launches_parallel`` or ``launches_experiments``,
-its launches at that shape in each run; null on the other entries), the
+{"kernels": [...]} line (one entry more per shape the chains, the
+data-parallel ranks, the measurement tools and the experiment recipes
+launched, with ``launches_chain``, ``launches_parallel``,
+``launches_tools`` or ``launches_experiments``, its launches at that
+shape in each run; null on the other entries; K3's entries with
+``library_ms`` and ``library_bf16_ms``, its reduction by the library
+beside ``reduction_ms``), the
 card's ``name, power.limit``, and last {"ok": true, "device": {...}}.
 Without a CUDA device, or without the rest of the repository beside it,
 it fails and prints no result.
@@ -809,6 +832,22 @@ def phase_kernels_train(dtype_name: str) -> list:
                 **resident_grid(ls.resident_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=False)))
         else:
+            # the walk and the reduction apart, and the reduction by the
+            # library beside it
+            walk = lambda: ls._launch_bwd_rowgroup_walk(  # noqa: E731
+                *common, *weights)
+            dxw, m, dh, part = walk()
+            reduction = lambda: ls._launch_wgrad(  # noqa: E731
+                h_h, dxw, m, dh, part)
+            apart = dict(
+                walk_ms=cuda_time_ms(walk, 2),
+                reduction_ms=cuda_time_ms(reduction, 5),
+                **library_reduction(h_h, dxw, m, dh, reduction()[:2]),
+                walk_bound_ms=bwd_bound(DU, DP, rows, TT, d_lens, dtype_name,
+                                        acc=False)["bound_ms"],
+                reduction_bound_ms=wgrad_bound(DU, DP, rows, TT, d_lens,
+                                               dtype_name)["bound_ms"],
+                reduction_splits=ls.wgrad_plan(TT, rows, DU, DP, sms).splits)
             before = ls.lstm_bwd_acc.launches
             results.append(timed(
                 "lstm_bwd_acc", dtype_name,
@@ -820,7 +859,7 @@ def phase_kernels_train(dtype_name: str) -> list:
                 # the route: every call (1 + 5 timed + 2 relaunches) took
                 # the row-group walk
                 check=lambda: ls.lstm_bwd_acc.launches == before + 8,
-                steps=TT, net="D", U=DU, P=DP, B=rows, T=TT,
+                steps=TT, net="D", U=DU, P=DP, B=rows, T=TT, **apart,
                 **rowgroup_grid(ls.rowgroup_bwd_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=True)))
     return results
@@ -835,6 +874,36 @@ def wgrad_bound(U_, P_, B_, T_, lengths, dtype_name):
     return bound(n * (2 * P_ * G_ + 2 * U_ * P_),
                  n * (P_ * 4 + (G_ + U_ + P_) * wb) + (P_ * G_ + U_ * P_) * 4,
                  dtype_name)
+
+
+def library_reduction(h_hist, dxw, m, dh, kernel_grads) -> dict:
+    """K3's reduction by the library on the walk's own streams: the two
+    einsums of ``lstm_weight_grads`` (f32, as the port computes them for
+    K2) timed, and their max |diff| against the kernel's dW_h and dproj
+    (``kernel_grads``); and a bf16-operand ``torch.matmul`` of the same
+    shapes timed."""
+    import torch
+
+    def einsums():
+        dxf = dxw.float()
+        return (torch.einsum("tbp,tbg->pg", h_hist[:-1], dxf[1:]),
+                torch.einsum("tbu,tbp->up", m.float(), dh.float()))
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1]).to(torch.bfloat16)
+    hb, gb, mb, db = rows(h_hist[:-1]), rows(dxw[1:]), rows(m), rows(dh)
+
+    def bf16():
+        return hb.t() @ gb, mb.t() @ db
+    # each once first: cuBLAS loads a shape's kernels at their first call
+    lib, _ = einsums(), bf16()
+    return {"library_ms": cuda_time_ms(einsums, 5),
+            "library_bf16_ms": cuda_time_ms(bf16, 5),
+            "library_max_abs_diff": max(float((a - b).abs().max())
+                                        for a, b in zip(lib, kernel_grads)),
+            "library_of": "the reduction's dW_h and dproj: "
+                          "lstm_weight_grads's two einsums in f32 "
+                          "(library_bf16_ms: torch.matmul, bf16 operands)"}
 
 
 def k3_g_width(rows: int, dtype_name: str, sms: int) -> dict:
@@ -869,10 +938,11 @@ def k3_g_width(rows: int, dtype_name: str, sms: int) -> dict:
         walk = lambda: ls._launch_bwd_resident(  # noqa: E731
             acts, lens_t, dout, c_h, *weights, acc=True)
         dxw, m, dh = walk()[:3]
+        reduction = lambda: ls._launch_wgrad(h_h, dxw, m, dh)  # noqa: E731
         extra.update(
             walk_ms=cuda_time_ms(walk, 2),
-            reduction_ms=cuda_time_ms(
-                lambda: ls._launch_wgrad(h_h, dxw, m, dh), 5),
+            reduction_ms=cuda_time_ms(reduction, 5),
+            **library_reduction(h_h, dxw, m, dh, reduction()),
             walk_bound_ms=bwd_bound(U, P, rows, TT, lens, dtype_name,
                                     acc=False)["bound_ms"],
             reduction_bound_ms=wgrad_bound(U, P, rows, TT, lens,
@@ -4398,7 +4468,7 @@ def experiment_run(counters: dict, argv: list, env=None) -> dict:
 def on_recipe_routes(launches: dict) -> bool:
     """K4 train, K1 and K2 in every train stage, K4 decode in every
     decode stage, each stage on its own kernels; K3 nowhere: at B=8 (and
-    synth_quality's 4) every backward has 4-16 rows, below
+    synth_quality's 4, micro's 2) every backward has 2-16 rows, below
     ACC_BWD_MIN_BATCH."""
     ok = bool(launches)
     for stage, c in launches.items():
@@ -4437,10 +4507,11 @@ def ref_scale_budget(train_dir: str) -> int:
 
 
 def phase_experiments(work: str) -> dict:
-    """The five experiment recipes through the port at full width: (a)
+    """The six experiment recipes through the port at full width: (a)
     ablation (two seeds, weight 10: the aggregate rows), (b)
     ablation_mfcc and (c) ema_check on (a)'s corpus, (d) ref_scale on
-    rotating shards, (e) synth_quality; each recipe's gate, the proxy's
+    rotating shards, (e) synth_quality, (f) micro (run_micro.sh at its
+    own size, B=2); each recipe's gate, the proxy's
     FER of every trained system below the noisy FER, TF32 off after the
     CLIs, the launch routes; then each kernel at every shape the recipes
     launched, against its twin in f32 and bf16."""
@@ -4519,6 +4590,10 @@ def phase_experiments(work: str) -> dict:
         f"--workdir={os.path.join(work, 'exp_quality')}"])
     line("synth_quality", res, res["passed"])
 
+    res = experiment_run(counters, [
+        "--recipe=micro", f"--workdir={os.path.join(work, 'exp_micro')}"])
+    line("micro", res, res["passed"] and res["check"]["passed"])
+
     t1 = time.monotonic()
     shapes = chain_shapes(runs)
     kernels = {d: [chain_kernel(name, key, d, EXP_T, EXP_LENGTHS,
@@ -4538,6 +4613,194 @@ def phase_experiments(work: str) -> dict:
     return out
 
 
+# The tools phase: the port's measurement tools as processes on the card,
+# the kernel tools at their defaults (full width, B=16, T=500).
+TOOL_RUNS = (("kernel_bench", []), ("profile_step", []),
+             ("serve_bench", ["20"]), ("io_bench", []))
+KERNEL_TOOLS = ("kernel_bench", "profile_step")
+TOOL_TIMEOUT = 300
+COUNTED_TOOL = ("import sys, chip_smoke; "
+                "sys.exit(chip_smoke.counted_tool(sys.argv[1], sys.argv[2], "
+                "sys.argv[3:]))")
+KERNEL_BENCH_NAMES = ("g_infer", "g_fwd", "g_fwdbwd", "d_fwd2b", "d_fwdbwd",
+                      "full")
+IO_STAGES = ("ark-plain", "ark-bcm-np", "store-build", "store-scan",
+             "batcher-0ctx", "batcher", "prefetch")
+# the hand kernels a profiled flagship step at B=16 runs, as kernel rows
+STEP_HAND_KERNELS = ("wavefront_resident_kernel", "lstm_fwd_rowgroup_kernel",
+                     "lstm_bwd_resident_kernel", "lstm_bwd_rowgroup_kernel",
+                     "lstm_wgrad_kernel")
+
+
+def counted_tool(counts_path: str, name: str, argv: list) -> int:
+    """``rsrgan_tpu_torch.tools.{name}.main(argv)`` in this process, every
+    launch count set to 0 just before it and written to ``counts_path``
+    (JSON) just after."""
+    import importlib
+
+    import torch
+    counters = chain_counters()
+    reset_counts(counters)
+    rc = importlib.import_module(f"rsrgan_tpu_torch.tools.{name}").main(argv)
+    torch.cuda.synchronize()
+    with open(counts_path, "w") as f:
+        json.dump(read_counts(counters), f)
+    return rc
+
+
+def run_tool(name: str, argv: list, work: str) -> dict:
+    """One tool as a process on the card through ``counted_tool``, with a
+    time limit: its exit code, seconds, printed lines (the JSON ones
+    parsed) and launch counts."""
+    counts_path = os.path.join(work, f"tool_counts_{name}.json")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", COUNTED_TOOL, counts_path, name, *argv,
+         "--device=cuda"], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        capture_output=True, text=True, timeout=TOOL_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    out = {"rc": proc.returncode, "seconds": time.monotonic() - t0,
+           "card": lines[0] if lines else None,
+           "lines": [ln for ln in lines[1:] if not ln.startswith("{")],
+           "json": [json.loads(ln) for ln in lines if ln.startswith("{")],
+           "launches": None}
+    if proc.returncode == 0:
+        with open(counts_path) as f:
+            out["launches"] = json.load(f)
+    else:
+        out["stderr_tail"] = proc.stderr[-3000:]
+    return out
+
+
+def tool_checks(name: str, r: dict) -> dict:
+    """Each tool's lines: the JAX tool's metric and keys, finite and
+    positive where they are times or rates; the kernel tools on the hand
+    kernels (their launches, profile_step's kernel rows), serve_bench on
+    none."""
+    js = r["json"]
+    last = js[-1] if js else {}
+    c = r["launches"] or {}
+    if name == "kernel_bench":
+        return {"metric": last.get("metric") == "kernel_bench_ms",
+                "segments": all(np.isfinite(last.get(n, np.nan))
+                                and last[n] > 0 for n in KERNEL_BENCH_NAMES),
+                "text_lines": [ln.split()[0] for ln in r["lines"]]
+                == list(KERNEL_BENCH_NAMES),
+                "launches": all(c.get(k, 0) > 0 for k in (
+                    "wavefront_fwd", "wavefront_fwd_train", "lstm_fwd",
+                    "lstm_bwd", "lstm_bwd_acc"))}
+    if name == "profile_step":
+        rollup = last.get("rollup_ms_per_step", {})
+        share = last.get("device_busy_share") or 0
+        return {"metric": last.get("metric") == "profile_step",
+                "steps": last.get("step_ranges") == 10,
+                "busy_share": 0 < share <= 1,
+                "hand_kernel_rows": all(rollup.get(f"hand kernel {k}", 0) > 0
+                                        for k in STEP_HAND_KERNELS),
+                "host_by_function": bool(last.get(
+                    "host_ms_per_step_by_function")),
+                "launches": all(c.get(k, 0) > 0 for k in (
+                    "wavefront_fwd_train", "lstm_fwd", "lstm_bwd",
+                    "lstm_bwd_acc"))}
+    if name == "serve_bench":
+        grid = [(j.get("lanes"), j.get("chunk_frames")) for j in js]
+        return {"metric": all(j.get("metric") == "stream_step_latency_ms"
+                              for j in js),
+                "grid": grid == [(n, f) for n in (1, 8, 32, 64)
+                                 for f in (10, 50)],
+                "latencies": all(0 < j["p50"] <= j["p95"] <= j["p99"]
+                                 for j in js),
+                "no_hand_kernel": hand_launches(c) == 0}
+    return {"metric": last.get("metric") == "io_bench_frames_per_sec",
+            "stages": list(k for k in last if k != "metric")
+            == list(IO_STAGES),
+            "rates": all(last.get(k, 0) > 0 for k in IO_STAGES)}
+
+
+def train_shape_key(r: dict) -> str:
+    """A kernels_train check's shape as the wrappers' ``shape_key``."""
+    if r["kernel"].startswith("wavefront"):
+        return (f"L={r['L']},U={r['U']},P={r['P']},B={r['B']},"
+                f"residual={0 if r.get('net') == 'G_lstm' else 1}")
+    return f"U={r['U']},P={r['P']},B={r['B']}"
+
+
+def held_shapes(results: dict) -> dict:
+    """(wrapper, shape_key) -> (phase, {dtype: check}) of every shape an
+    earlier phase held against its twin in f32 and bf16: K4 decode at
+    B=16 (phase kernel), the kernels_train shapes, and the shapes of the
+    chain and parallel phases."""
+    held = {}
+    if "kernel" in results:
+        held[("wavefront_fwd", f"L={L},U={U},P={P},B={B},residual=1")] = (
+            "kernel", {d: {**r, **wavefront_bound(L, U, P, B, T, LENGTHS, d,
+                                                  train=False)}
+                       for d, r in results["kernel"].items()})
+    if "kernels_train" in results:
+        kt = results["kernels_train"]
+        for r32, r16 in zip(kt["float32"], kt["bfloat16"]):
+            held.setdefault((r16["kernel"], train_shape_key(r16)), (
+                "kernels_train", {"float32": r32, "bfloat16": r16}))
+    for phase in ("chain", "parallel"):
+        if phase in results:
+            ks = results[phase]["kernels"]
+            for r32, r16 in zip(ks["float32"], ks["bfloat16"]):
+                held.setdefault((r16["kernel"], r16["shape"]), (
+                    phase, {"float32": r32, "bfloat16": r16}))
+    return held
+
+
+def phase_tools(work: str, results: dict, card: str) -> dict:
+    """The four measurement tools as processes on the card (kernel_bench
+    and profile_step at full width, B=16, T=500; serve_bench at 20
+    chunks; io_bench at its defaults), each to exit 0 and print its
+    lines after the card's; the kernel tools' launches by shape, and
+    every shape they launched held against its twin in f32 and bf16
+    (anew where no earlier phase held it)."""
+    t0 = time.monotonic()
+    runs, checks = {}, {}
+    for name, argv in TOOL_RUNS:
+        r = run_tool(name, argv, work)
+        r["checks"] = tool_checks(name, r) if r["rc"] == 0 else {}
+        r["checks"]["card_line"] = r["card"] == card
+        runs[name], checks[name] = r, (r["rc"] == 0
+                                       and all(r["checks"].values()))
+    t1 = time.monotonic()
+    shapes = sorted({(k, key) for t in KERNEL_TOOLS
+                     for k in EXP_KERNELS
+                     for key in (runs[t]["launches"] or {}).get(
+                         f"{k}_by_shape", {})})
+    held = held_shapes(results)
+    kernels = []
+    for k, key in shapes:
+        phase, by_dtype = held.get((k, key), ("tools", None))
+        if by_dtype is None:
+            by_dtype = {d: chain_kernel(k, key, d, TT, TRAIN_LENGTHS,
+                                        "tools_kernels")
+                        for d in ("float32", "bfloat16")}
+        kernels.append({"kernel": k, "shape": key, "held_in": phase,
+                        "launches": {t: n for t in KERNEL_TOOLS if (
+                            n := (runs[t]["launches"] or {}).get(
+                                f"{k}_by_shape", {}).get(key, 0))},
+                        **by_dtype})
+    out = {"phase": "tools", "seconds": time.monotonic() - t0,
+           "kernel_check_seconds": time.monotonic() - t1,
+           "tool_seconds": {n: r["seconds"] for n, r in runs.items()},
+           **{n: {k: v for k, v in r.items() if k != "seconds"}
+              for n, r in runs.items()},
+           "shapes": [{"kernel": e["kernel"], "shape": e["shape"],
+                       "held_in": e["held_in"], "launches": e["launches"],
+                       "ok": all(e[d]["ok"] for d in ("float32",
+                                                      "bfloat16"))}
+                      for e in kernels],
+           "checks": checks}
+    out["ok"] = bool(all(checks.values()) and shapes
+                     and all(e["ok"] for e in out["shapes"]))
+    emit(out)
+    out["kernels"] = kernels
+    return out
+
+
 def card_name_and_limit() -> str:
     proc = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"],
@@ -4547,7 +4810,7 @@ def card_name_and_limit() -> str:
 
 PHASES = ("build", "kernel", "kernels_train", "grad", "prepare", "train",
           "train_mse", "train_frame", "segan", "parallel", "feed", "decode",
-          "chain", "serve", "proxy", "experiments")
+          "chain", "serve", "tools", "proxy", "experiments")
 
 
 def kernel_entry(name, source, replaces, launches, launches_per, result,
@@ -4555,7 +4818,9 @@ def kernel_entry(name, source, replaces, launches, launches_per, result,
     extra = {k: result[k] for k in ("grid", "design", "streaming_ms",
                                     "rowgroup_ms", "us_per_step", "walk_ms",
                                     "reduction_ms", "walk_bound_ms",
-                                    "reduction_bound_ms")
+                                    "reduction_bound_ms", "library_ms",
+                                    "library_bf16_ms",
+                                    "library_max_abs_diff", "library_of")
              if k in result}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4566,9 +4831,9 @@ def kernel_entry(name, source, replaces, launches, launches_per, result,
             "ms": result["ms"], "plain_ms": result["plain_ms"],
             "bound_ms": bound_keys["bound_ms"],
             "bound_by": bound_keys["bound_by"],
-            # no single PyTorch call computes these functions: the cell
-            # has peepholes and a projection, which torch.nn.LSTM and
-            # cuDNN do not (ROADMAP.md)
+            # no single PyTorch call computes K1, K2, K4 or K3's walk: the
+            # cell has peepholes and a projection, which torch.nn.LSTM and
+            # cuDNN do not; K3's reduction has its library time (extra)
             "library_ms": None, **extra}
 
 
@@ -4717,6 +4982,25 @@ def kernels_line(results: dict) -> dict:
             entry["launches_parallel"] = per
             entries.append(entry)
     for entry in entries:
+        entry["launches_tools"] = None  # shapes the tools do not run
+    if "tools" in results:
+        # one entry per shape the kernel tools launched: its check at that
+        # shape (anew, or the earlier phase's that held it), its launches
+        # there in each tool
+        for e in results["tools"]["kernels"]:
+            label, replaces = labels[e["kernel"]]
+            entry = kernel_entry(
+                f"{label}; measurement tools at {e['shape']})", RESIDENT,
+                replaces, sum(e["launches"].values()),
+                "tools.kernel_bench's segments and full step (B=16, T=500; "
+                "5 windows of 20) and tools.profile_step's 21 steps "
+                "(launches_tools: tool -> launches)", e["bfloat16"],
+                e["bfloat16"])
+            entry.update(launches_chain=None, launches_parallel=None,
+                         launches_tools=e["launches"],
+                         held_in=e["held_in"])
+            entries.append(entry)
+    for entry in entries:
         entry["launches_experiments"] = None  # shapes no recipe runs
     if "experiments" in results:
         # one entry per shape the experiment recipes launched: its check
@@ -4737,7 +5021,7 @@ def kernels_line(results: dict) -> dict:
                 "--batch_size=8, synth_quality at 4; launches_experiments: "
                 "recipe and stage -> launches)", r, r)
             entry.update(launches_chain=None, launches_parallel=None,
-                         launches_experiments=per)
+                         launches_tools=None, launches_experiments=per)
             entries.append(entry)
     return {"kernels": entries}
 
@@ -4823,6 +5107,10 @@ def main(argv=None) -> int:
             oks.append(results["chain"]["ok"])
         if "serve" in phases:
             oks.append(clocked("serve", phase_serve, work)["ok"])
+        if "tools" in phases:
+            results["tools"] = clocked("tools", phase_tools, work, results,
+                                       card)
+            oks.append(results["tools"]["ok"])
         if "proxy" in phases:
             oks.append(clocked("proxy", phase_proxy, work)["ok"])
         if "experiments" in phases:

@@ -946,10 +946,10 @@ def _launch_wgrad(h_hist, dxw, m, dh, part=None):
     return grads
 
 
-def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
-                         wf, wo):
-    """K3 on CUDA tensors: the row-group walk, then the reduction."""
-    _check_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo)
+def _launch_bwd_rowgroup_walk(acts, lengths, dout, c_hist, w_h, proj, wi,
+                              wf, wo):
+    """K3's row-group walk on CUDA tensors: (dxw, m, dh, the group
+    partials [groups, 7U] of dbias and the peephole sums)."""
     T, B, G = acts.shape
     U, P = proj.shape
     cdt, dev = w_h.dtype, acts.device
@@ -974,7 +974,16 @@ def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
             plan.n_res_h, o["a1"], o["a2"], o["dm"], o["acts"], o["c"],
             o["dc"], o["part"], o["len"], o["wp"], o["wh"], plan.smem)
         resident.launch("lstm_bwd_rowgroup", params, bf16, dev, shape)
-    return (dxw,) + _launch_wgrad(h_hist, dxw, m_out, dh_out, part)
+    return dxw, m_out, dh_out, part
+
+
+def _launch_bwd_rowgroup(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi,
+                         wf, wo):
+    """K3 on CUDA tensors: the row-group walk, then the reduction."""
+    _check_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo)
+    dxw, m, dh, part = _launch_bwd_rowgroup_walk(acts, lengths, dout, c_hist,
+                                                 w_h, proj, wi, wf, wo)
+    return (dxw,) + _launch_wgrad(h_hist, dxw, m, dh, part)
 
 
 def _launch_bwd_resident_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj,

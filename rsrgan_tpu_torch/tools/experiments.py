@@ -11,6 +11,7 @@
     ... --recipe=ema_check [--lps_workdir=DIR --workdir=DIR --iters=50]
     ... --recipe=synth_quality [--workdir=DIR --iters=24]
     ... --recipe=multihost [--workdir=DIR]
+    ... --recipe=micro [--workdir=DIR]
 
 Each recipe is the shell recipe of the same name under ``recipes/``
 (``run_<recipe>.sh``), stage by stage, each CLI called in this process
@@ -50,6 +51,13 @@ environment variables the recipes read (``ABLATION_MAX_LSD_RATIO``,
   4-device mesh); a process of the port is one rank, so the port's world
   is 2 ranks (global batch 16, learning rate x 2), the one-process
   ``--num_gpu=2`` run's.
+- ``micro``: ``run_micro.sh``'s stages -1 to 3 and its check: a
+  24-utterance ``make_synthetic_corpus`` (257 -> 40), cmvn, split, the
+  tr/cv stores and the test store, the flagship at ``--batch_size=2``
+  for up to 2 epochs, decode, then "6 enhanced utterances, 40-dim,
+  finite". Its stage 4 (``tools/tpu_parity_check.py``, the Pallas
+  kernels compiled on a TPU) is not ported: ``chip_smoke.py``'s kernel
+  phases hold every hand kernel against its plain twin on the card.
 
 Systems that are done (their ``DONE`` marker) are skipped, as in the
 recipes. Prints the CLIs' output, then one JSON line: each stage's
@@ -74,7 +82,7 @@ import numpy as np
 from rsrgan_tpu_torch.tools import recipe_stages as rs
 
 RECIPES = ("ablation", "ablation_mfcc", "ref_scale", "ema_check",
-           "synth_quality", "multihost")
+           "synth_quality", "multihost", "micro")
 
 # each recipe's defaults (its positional arguments and environment);
 # workdirs lie under the temporary directory
@@ -90,6 +98,7 @@ DEFAULTS = {
                       workdir="rsrgan_ema_check", iters=50, stop_stage=3),
     "synth_quality": dict(workdir="rsrgan_quality", iters=24),
     "multihost": dict(workdir="rsrgan_multihost"),
+    "micro": dict(workdir="rsrgan_micro"),
 }
 
 
@@ -831,9 +840,100 @@ def run_multihost(r: Runner) -> dict:
             "eval_records": eval_rows}
 
 
+MICRO_TEST_UTTS = 6   # the recipe's --val_size: its test store
+
+
+def micro_verdict(save_dir: str) -> dict:
+    """``run_micro.sh``'s check heredoc on the decode: MICRO_TEST_UTTS
+    utterances, each 40-dim and finite; its printed line and ``passed``
+    (where the heredoc's assert would fail, the reason)."""
+    from rsrgan_tpu_torch.data import ScpReader
+    r = ScpReader(f"{save_dir}/test/feats.scp")
+    bad = [u for u, mat in r
+           if mat.shape[1] != 40 or not np.isfinite(mat).all()]
+    if len(r) != MICRO_TEST_UTTS or bad:
+        return {"line": f"FAIL: {len(r)} utterances, not 40-dim or not "
+                        f"finite: {bad}", "passed": False}
+    return {"line": f"OK: {len(r)} enhanced utterances, 40-dim, finite.",
+            "passed": True}
+
+
+def run_micro(r: Runner) -> dict:
+    """``recipes/run_micro.sh``: stages -1 to 3 and the check of the
+    decode; stage 4 is not ported (see the module's docstring)."""
+    from rsrgan_tpu_torch.data import synthetic
+
+    w = r.args.workdir
+    train_dir, test_dir = f"{w}/data/train", f"{w}/data/test"
+    save_dir = f"{w}/exp/gan_res_lstm_l"
+    r.systems = [System("gan", "gan_rnn", save_dir)]
+    with r.timer.stage("-1_corpus"):
+        shutil.rmtree(w, ignore_errors=True)
+        os.makedirs(w)
+        synthetic.make_synthetic_corpus(train_dir, num_utts=24,
+                                        input_dim=257, output_dim=40,
+                                        min_len=120, max_len=260, seed=7)
+    with r.timer.stage("0_prepare"):
+        r.cli("cli.prepare", ["cmvn", f"--inputs={train_dir}/inputs.cmvn",
+                              f"--labels={train_dir}/labels.cmvn",
+                              f"--save_dir={train_dir}"], "0_prepare")
+        r.cli("cli.prepare", ["split", "--val_size=6",
+                              f"--data_dir={train_dir}"], "0_prepare")
+        os.makedirs(f"{train_dir}/stores", exist_ok=True)
+        for sub in ("tr", "cv"):
+            r.cli("cli.prepare", [
+                "make-store", f"--inputs={train_dir}/{sub}/inputs.scp",
+                f"--labels={train_dir}/{sub}/labels.scp",
+                f"--cmvn_dir={train_dir}",
+                f"--output_dir={train_dir}/stores", f"--name={sub}"],
+                "0_prepare")
+            with open(f"{train_dir}/{sub}.list", "w") as f:
+                f.write(f"{train_dir}/stores/{sub}.rtu\n")
+    with r.timer.stage("1_test_store"):
+        os.makedirs(test_dir, exist_ok=True)
+        r.cli("cli.prepare", [
+            "make-store", f"--inputs={train_dir}/cv/inputs.scp",
+            f"--cmvn_dir={train_dir}", f"--output_dir={test_dir}",
+            "--name=test", "--test"], "1_test_store")
+        with open(f"{test_dir}/test.list", "w") as f:
+            f.write(f"{test_dir}/test.rtu\n")
+    with r.timer.stage("2_train"):
+        r.cli("cli.train", [
+            "--trainer=gan_rnn", f"--data_dir={train_dir}",
+            f"--tr_list_file={train_dir}/tr.list",
+            f"--cv_list_file={train_dir}/cv.list", "--g_type=res_lstm_l",
+            f"--save_dir={save_dir}", "--batch_size=2",
+            "--g_learning_rate=0.00008", "--d_learning_rate=0.001",
+            "--disc_updates=1", "--gen_updates=2", "--batch_norm=False",
+            "--l2_scale=0.0", "--init_mse_weight=10.0", "--input_dim=257",
+            "--output_dim=40", "--left_context=0", "--right_context=0",
+            "--min_epoches=1", "--max_epoches=2", "--end_improve=0.001",
+            "--init_disc_noise_std=0.05", "--num_gpu=1"], "2_train",
+            device=True)
+    with r.timer.stage("3_decode"):
+        r.cli("cli.train", [
+            "--decode", "--trainer=gan_rnn", f"--data_dir={train_dir}",
+            f"--test_list_file={test_dir}/test.list", "--g_type=res_lstm_l",
+            f"--save_dir={save_dir}", "--batch_norm=False",
+            "--input_dim=257", "--output_dim=40", "--left_context=0",
+            "--right_context=0", "--batch_size=1", "--keep_prob=1.0",
+            "--l2_scale=0.0"], "3_decode", device=True)
+    print("stage 4 (tools/tpu_parity_check.py) is not ported: "
+          "chip_smoke.py's kernel phases hold every hand kernel against "
+          "its plain twin on the card", flush=True)
+    with r.timer.stage("verify"):
+        check = micro_verdict(save_dir)
+    print(check["line"], flush=True)
+    if not check["passed"]:
+        return {"rc": 1, "check": check}
+    print("MICRO RUN PASSED", flush=True)
+    return {"rc": 0, "check": check}
+
+
 RUN = {"ablation": run_ablation, "ablation_mfcc": run_ablation_mfcc,
        "ref_scale": run_ref_scale, "ema_check": run_ema_check,
-       "synth_quality": run_synth_quality, "multihost": run_multihost}
+       "synth_quality": run_synth_quality, "multihost": run_multihost,
+       "micro": run_micro}
 
 
 def run_recipe(args: argparse.Namespace, assets: Optional[dict] = None,
