@@ -848,7 +848,7 @@ def phase_kernels_train(dtype_name: str) -> list:
                 reduction_bound_ms=wgrad_bound(DU, DP, rows, TT, d_lens,
                                                dtype_name)["bound_ms"],
                 reduction_splits=ls.wgrad_plan(TT, rows, DU, DP, sms).splits)
-            before = ls.lstm_bwd_acc.launches
+            before = ls.lstm_bwd_acc.launches_by_route.get("rowgroup", 0)
             results.append(timed(
                 "lstm_bwd_acc", dtype_name,
                 lambda: ls.lstm_bwd_acc(*common, h_h, *weights),
@@ -858,7 +858,8 @@ def phase_kernels_train(dtype_name: str) -> list:
                                                  acc=True),
                 # the route: every call (1 + 5 timed + 2 relaunches) took
                 # the row-group walk
-                check=lambda: ls.lstm_bwd_acc.launches == before + 8,
+                check=lambda: ls.lstm_bwd_acc.launches_by_route.get(
+                    "rowgroup", 0) == before + 8,
                 steps=TT, net="D", U=DU, P=DP, B=rows, T=TT, **apart,
                 **rowgroup_grid(ls.rowgroup_bwd_plan(rows, DU, DP, cdt, sms)),
                 **bwd_bound(DU, DP, rows, TT, d_lens, dtype_name, acc=True)))
@@ -931,8 +932,6 @@ def k3_g_width(rows: int, dtype_name: str, sms: int) -> dict:
         rng.normal(size=(TT, rows, P)).astype(np.float32)).cuda()
     args = (acts, lens_t, dout, c_h, h_h, *weights)
     route = ls.bwd_acc_route(rows, U, P, cdt, sms)
-    count = {"resident": "resident_launches",
-             "streaming": "streaming_launches"}[route]
     extra = {"route": route, "net": "G", "U": U, "P": P, "B": rows, "T": TT}
     if route == "resident":
         walk = lambda: ls._launch_bwd_resident(  # noqa: E731
@@ -959,13 +958,14 @@ def k3_g_width(rows: int, dtype_name: str, sms: int) -> dict:
                 lambda: ls._launch_bwd_resident_acc(*args), 2)
         except ValueError:
             pass
-    before = getattr(ls.lstm_bwd_acc, count)
+    before = ls.lstm_bwd_acc.launches_by_route.get(route, 0)
     return timed(
         "lstm_bwd_acc", dtype_name, lambda: ls.lstm_bwd_acc(*args),
         lambda: ls.lstm_bwd_acc_reference(*args), K3_GRADS, reps=2,
         streaming=lambda: ls._launch_bwd(*args, acc=True), steps=TT,
         # the route: every call (1 + 2 timed + 2 relaunches) took it
-        check=lambda: getattr(ls.lstm_bwd_acc, count) == before + 5,
+        check=lambda: ls.lstm_bwd_acc.launches_by_route.get(
+            route, 0) == before + 5,
         **extra, **bwd_bound(U, P, rows, TT, lens, dtype_name, acc=True))
 
 
@@ -1121,9 +1121,10 @@ def phase_grad() -> dict:
     g_err = rel_errs(g_grads(True, *g16), g_grads(False, *g16))
     # B=32: every layer's backward takes K3's resident route (a count each)
     g32 = g_inputs(np.random.default_rng(14), 2 * B)
-    before = ls.lstm_bwd_acc.resident_launches
+    before = ls.lstm_bwd_acc.launches_by_route.get("resident", 0)
     g32_kernel = g_grads(True, *g32)
-    g32_launches = ls.lstm_bwd_acc.resident_launches - before
+    g32_launches = (ls.lstm_bwd_acc.launches_by_route.get("resident", 0)
+                    - before)
     g32_err = rel_errs(g32_kernel, g_grads(False, *g32))
     d_err = {}
     for rows in (B, 2 * B):
@@ -1369,15 +1370,21 @@ def launches_at_units(by_shape: dict, units: int) -> int:
 
 
 def reset_counts(counters: dict) -> None:
-    """Every launch count of ``counters`` (name -> (wrapper, attribute))
-    set to 0, or emptied where it is a count by shape."""
-    for fn, attr in counters.values():
+    """Every launch count of ``counters`` (name -> (wrapper, attribute[,
+    key])) set to 0, or emptied where it is a count by shape or route."""
+    for fn, attr, *_ in counters.values():
         setattr(fn, attr, type(getattr(fn, attr))())
 
 
 def read_counts(counters: dict) -> dict:
-    return {name: (dict(v) if isinstance(v := getattr(fn, attr), dict)
-                   else v) for name, (fn, attr) in counters.items()}
+    """Each count of ``counters``: a number, a copy of a count by shape,
+    or one route's entry (``key``) of a count by route."""
+    out = {}
+    for name, (fn, attr, *key) in counters.items():
+        v = getattr(fn, attr)
+        out[name] = (v.get(key[0], 0) if key
+                     else dict(v) if isinstance(v, dict) else v)
+    return out
 
 
 def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
@@ -1903,9 +1910,10 @@ FRAME_STEP_TOL = 1e-4
 
 
 def counter_table() -> dict:
-    """name -> (wrapper, its count); lstm_bwd_acc counts its three routes
-    apart: the row-group walk, the resident walk, csrc/lstm_bwd.cu;
-    lstm_fwd its two by route name (``fwd_route``)."""
+    """name -> (wrapper, its count[, the route it counts]); lstm_bwd_acc's
+    three routes apart (``launches_by_route``): the row-group walk, the
+    resident walk, csrc/lstm_bwd.cu; lstm_fwd's two by route name
+    (``fwd_route``)."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import wavefront as wf
     return {"wavefront_fwd_train": (wf.lstm_wavefront_fwd_train, "launches"),
@@ -1913,10 +1921,12 @@ def counter_table() -> dict:
             "lstm_fwd_by_shape": (ls.lstm_fwd, "launches_by_shape"),
             "lstm_fwd_by_route": (ls.lstm_fwd, "launches_by_route"),
             "lstm_bwd": (ls.lstm_bwd, "launches"),
-            "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches"),
-            "lstm_bwd_acc_resident": (ls.lstm_bwd_acc, "resident_launches"),
-            "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc,
-                                       "streaming_launches"),
+            "lstm_bwd_acc": (ls.lstm_bwd_acc, "launches_by_route",
+                             "rowgroup"),
+            "lstm_bwd_acc_resident": (ls.lstm_bwd_acc, "launches_by_route",
+                                      "resident"),
+            "lstm_bwd_acc_streaming": (ls.lstm_bwd_acc, "launches_by_route",
+                                       "streaming"),
             "wavefront_fwd": (wf.lstm_wavefront_fwd, "launches")}
 
 

@@ -108,6 +108,7 @@ from typing import (Dict, Hashable, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.cli import (resolve_device, set_precision,
                                   str2bool)
 from rsrgan_tpu_torch.data import (ArkWriter, FrameBatcher,
@@ -254,6 +255,9 @@ def run_decode(args) -> int:
     def infer(inputs: np.ndarray, lengths: np.ndarray) -> np.ndarray:
         if sharded:
             inputs, lengths = shard_batch(world, (inputs, lengths))
+        if device.type == "cuda":
+            # the two uploads from pageable memory and the read back
+            spans.count("host_wait", 3)
         x = torch.from_numpy(inputs).to(device)
         out = (gen(x, torch.from_numpy(lengths).to(device)) if sequence
                else gen(x))
@@ -301,36 +305,50 @@ def _decode_batched(args, test_store, infer, labels_cmvn, writer,
     length (their outputs are dropped), so that they divide over the
     ranks."""
     B = args.decode_batch_size
-    lengths = test_store.lengths
-    pad = [int(-(-l // 128) * 128) for l in lengths]
-    order = sorted(range(len(test_store)), key=lambda i: (pad[i], i))
-    splice = args.left_context + 1 + args.right_context
-    results = {}
-    idx = 0
-    while idx < len(order):
-        t_pad = pad[order[idx]]
-        group = []
-        while (idx < len(order) and len(group) < B
-               and pad[order[idx]] == t_pad):
-            group.append(order[idx])
-            idx += 1
-        rows = -(-len(group) // row_quant) * row_quant
-        x = np.zeros((rows, t_pad, test_store.input_dim * splice),
-                     np.float32)
-        lens = np.full((rows,), t_pad, np.int32)
-        for row, i in enumerate(group):
-            feats = splice_frames_np(np.asarray(test_store.inputs(i)),
-                                     args.left_context, args.right_context)
-            x[row, :feats.shape[0]] = feats
-            lens[row] = feats.shape[0]
-        act = infer(x, lens)
-        for row, i in enumerate(group):
-            results[i] = labels_cmvn.denormalize(act[row, :lens[row]])
-    if writer is not None:
-        for i in range(len(test_store)):
-            writer.write_next_utt(ark_path, test_store.utt_ids[i],
-                                  results[i])
-    log(f"Wrote {len(results)} utterances (batched decode, B={B})")
+    with spans.span("decode.pass"):
+        lengths = test_store.lengths
+        with spans.span("decode.order"):
+            pad = [int(-(-l // 128) * 128) for l in lengths]
+            order = sorted(range(len(test_store)),
+                           key=lambda i: (pad[i], i))
+        splice = args.left_context + 1 + args.right_context
+        results = {}
+        idx = 0
+        while idx < len(order):
+            with spans.span("decode.batch"):
+                t_pad = pad[order[idx]]
+                group = []
+                while (idx < len(order) and len(group) < B
+                       and pad[order[idx]] == t_pad):
+                    group.append(order[idx])
+                    idx += 1
+                with spans.span("decode.assemble"):
+                    rows = -(-len(group) // row_quant) * row_quant
+                    x = np.zeros(
+                        (rows, t_pad, test_store.input_dim * splice),
+                        np.float32)
+                    lens = np.full((rows,), t_pad, np.int32)
+                    for row, i in enumerate(group):
+                        feats = splice_frames_np(
+                            np.asarray(test_store.inputs(i)),
+                            args.left_context, args.right_context)
+                        x[row, :feats.shape[0]] = feats
+                        lens[row] = feats.shape[0]
+                act = infer(x, lens)
+                with spans.span("decode.denormalize"):
+                    for row, i in enumerate(group):
+                        results[i] = labels_cmvn.denormalize(
+                            act[row, :lens[row]])
+                # the batch's buffers (megabytes, whose release takes a
+                # fraction of a ms) go with the batch, inside its span
+                del x, act
+        if writer is not None:
+            with spans.span("decode.write"):
+                for i in range(len(test_store)):
+                    # each utterance's rows freed once written
+                    writer.write_next_utt(ark_path, test_store.utt_ids[i],
+                                          results.pop(i))
+        log(f"Wrote {len(order)} utterances (batched decode, B={B})")
 
 
 def ckpt_meta(args) -> dict:
@@ -699,11 +717,12 @@ def plan_to_device(starts: np.ndarray, lengths: np.ndarray,
     """One [B] plan to the device through a small pinned buffer, without
     waiting for the copy (the caching host allocator keeps the buffer
     until the copy has read it)."""
-    host = torch.from_numpy(np.stack([starts, lengths]).astype(np.int32))
-    if device.type == "cuda":
-        host = host.pin_memory()
-    dev = host.to(device, non_blocking=True)
-    return dev[0], dev[1]
+    with spans.span("feed.to_device"):
+        host = torch.from_numpy(np.stack([starts, lengths]).astype(np.int32))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        dev = host.to(device, non_blocking=True)
+        return dev[0], dev[1]
 
 
 def world_total(count: int) -> int:

@@ -36,6 +36,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from rsrgan_tpu_torch import spans
+
 _DEFAULT_CHUNK_BYTES = 1 << 26  # 64 MB of float32 rows per host->device copy
 
 
@@ -199,8 +201,9 @@ class DeviceFeed:
                    if t is not None)
 
     def plan(self, indices) -> Tuple[np.ndarray, np.ndarray]:
-        ix = np.asarray(indices, np.int64)
-        return self.starts[ix], self.lengths[ix]
+        with spans.span("feed.plan"):
+            ix = np.asarray(indices, np.int64)
+            return self.starts[ix], self.lengths[ix]
 
 
 class RotatingDeviceFeed:
@@ -379,5 +382,6 @@ class RotatingDeviceFeed:
         """(starts, lengths) local to the ACTIVE shard; ``view_indices``
         are positions within the shard (what a SequenceBatcher over
         ``StoreView(store, feed.shards[k])`` yields)."""
-        ix = np.asarray(view_indices, np.int64)
-        return self.starts[ix], self.lengths[ix]
+        with spans.span("feed.plan"):
+            ix = np.asarray(view_indices, np.int64)
+            return self.starts[ix], self.lengths[ix]

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from rsrgan_tpu_torch import spans
+
 
 def _row_indices(starts: torch.Tensor, lengths: torch.Tensor, t_pad: int,
                  offsets, zero_row: int):
@@ -68,9 +70,10 @@ def assemble_sequence_batch(inputs_tbl: torch.Tensor,
     """(spliced inputs, labels) of one batch plan; labels never spliced.
     The tables hold the same frames (same row count), so the labels
     gather reuses the inputs' offset-0 rows."""
-    rows = _row_indices(starts, lengths, t_pad, range(-left, right + 1),
-                        inputs_tbl.shape[0] - 1)
-    x = _gather(inputs_tbl, rows, starts.shape[0], t_pad)
-    y = (_gather(labels_tbl, rows[left:left + 1], starts.shape[0], t_pad)
-         if labels_tbl is not None else None)
-    return x, y
+    with spans.span("feed.gather"):
+        rows = _row_indices(starts, lengths, t_pad, range(-left, right + 1),
+                            inputs_tbl.shape[0] - 1)
+        x = _gather(inputs_tbl, rows, starts.shape[0], t_pad)
+        y = (_gather(labels_tbl, rows[left:left + 1], starts.shape[0],
+                     t_pad) if labels_tbl is not None else None)
+        return x, y

@@ -54,6 +54,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops import _build, resident, wavefront
 
 # Rows from which the backward reduces its weight gradients inside the
@@ -270,9 +271,11 @@ def _launch_fwd_rowgroup(xw, lengths, w_h, proj, bias, wi, wf, wo,
     U, P = proj.shape
     cdt, dev = w_h.dtype, xw.device
     with torch.cuda.device(dev):
-        plan = rowgroup_plan(B, U, P, cdt, resident.sm_count(dev))
-        wh_pk, wp_pk = pack_fwd_weights(w_h, proj, plan)
-        rows = torch.tensor(plan.row_bounds, dtype=torch.int32, device=dev)
+        with spans.span("launch.plan"):
+            plan = rowgroup_plan(B, U, P, cdt, resident.sm_count(dev))
+        with spans.span("launch.pack"):
+            wh_pk, wp_pk = pack_fwd_weights(w_h, proj, plan)
+        rows = resident.upload_int32(plan.row_bounds, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         out = torch.empty((T, B, P), **f32)
         if save_acts:
@@ -353,16 +356,14 @@ def lstm_fwd(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts=True):
         raise ValueError(f"no LSTM forward kernel for device {xw.device}")
     B = xw.shape[1]
     U, P = proj.shape
-    route = fwd_route(B, U, P, w_h.dtype, resident.sm_count(xw.device))
-    launch = (_launch_fwd_rowgroup if route == "rowgroup"
-              else _launch_fwd_resident)
-    out = launch(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts)
-    lstm_fwd.launches += 1
-    key = shape_key(proj, B)
-    lstm_fwd.launches_by_shape[key] = (
-        lstm_fwd.launches_by_shape.get(key, 0) + 1)
-    lstm_fwd.launches_by_route[route] = (
-        lstm_fwd.launches_by_route.get(route, 0) + 1)
+    with spans.span("launch.k1"):
+        with spans.span("launch.plan"):
+            route = fwd_route(B, U, P, w_h.dtype,
+                              resident.sm_count(xw.device))
+        launch = (_launch_fwd_rowgroup if route == "rowgroup"
+                  else _launch_fwd_resident)
+        out = launch(xw, lengths, w_h, proj, bias, wi, wf, wo, save_acts)
+        spans.count_launch(lstm_fwd, shape_key(proj, B), route)
     return out
 
 
@@ -534,10 +535,11 @@ def _launch_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo,
                 wf.data_ptr(), wo.data_ptr(), dc.data_ptr(), dh.data_ptr(),
                 dg.data_ptr(), dxw.data_ptr(), m_out.data_ptr(),
                 dh_out.data_ptr()]
-        err = lib.lstm_bwd(*ptrs, *grad_ptrs, T, B, U, P, int(acc),
-                           int(cdt == torch.bfloat16),
-                           dev.index if dev.index is not None
-                           else torch.cuda.current_device(), stream)
+        with spans.span("launch.call"):
+            err = lib.lstm_bwd(*ptrs, *grad_ptrs, T, B, U, P, int(acc),
+                               int(cdt == torch.bfloat16),
+                               dev.index if dev.index is not None
+                               else torch.cuda.current_device(), stream)
     if err != 0:
         raise RuntimeError(
             f"lstm_bwd launch failed: CUDA error {err} "
@@ -664,10 +666,12 @@ def _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi, wf,
     U, P = proj.shape
     cdt, dev = w_h.dtype, acts.device
     with torch.cuda.device(dev):
-        plan = resident_plan(B, U, P, cdt, resident.sm_count(dev), acc)
-        proj_pk, wh_pk = pack_bwd_weights(w_h, proj, plan)
-        bounds = torch.tensor(plan.unit_bounds + plan.col_bounds,
-                              dtype=torch.int32, device=dev)
+        with spans.span("launch.plan"):
+            plan = resident_plan(B, U, P, cdt, resident.sm_count(dev), acc)
+        with spans.span("launch.pack"):
+            proj_pk, wh_pk = pack_bwd_weights(w_h, proj, plan)
+        bounds = resident.upload_int32(plan.unit_bounds + plan.col_bounds,
+                                       dev)
         f32 = dict(dtype=torch.float32, device=dev)
         dh = torch.zeros((B, P), **f32)
         partial = torch.empty((plan.blocks, B, P), **f32)
@@ -700,12 +704,10 @@ def lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf, wo):
                                   wi, wf, wo)
     if acts.device.type != "cuda":
         raise ValueError(f"no LSTM backward kernel for device {acts.device}")
-    out = _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj, wi,
-                               wf, wo)
-    lstm_bwd.launches += 1
-    key = shape_key(proj, acts.shape[1])
-    lstm_bwd.launches_by_shape[key] = (
-        lstm_bwd.launches_by_shape.get(key, 0) + 1)
+    with spans.span("launch.k2"):
+        out = _launch_bwd_resident(acts, lengths, dout, c_hist, w_h, proj,
+                                   wi, wf, wo)
+        spans.count_launch(lstm_bwd, shape_key(proj, acts.shape[1]))
     return out
 
 
@@ -926,7 +928,8 @@ def _launch_wgrad(h_hist, dxw, m, dh, part=None):
     U, P = m.shape[2], dh.shape[2]
     cdt, dev = dxw.dtype, dxw.device
     with torch.cuda.device(dev):
-        wplan = wgrad_plan(T, B, U, P, resident.sm_count(dev))
+        with spans.span("launch.plan"):
+            wplan = wgrad_plan(T, B, U, P, resident.sm_count(dev))
         f32 = dict(dtype=torch.float32, device=dev)
         grads = (torch.empty((P, G), **f32), torch.empty((U, P), **f32))
         if part is not None:
@@ -955,9 +958,11 @@ def _launch_bwd_rowgroup_walk(acts, lengths, dout, c_hist, w_h, proj, wi,
     cdt, dev = w_h.dtype, acts.device
     bf16, shape = cdt == torch.bfloat16, f"T={T} B={B} U={U} P={P} {cdt}"
     with torch.cuda.device(dev):
-        plan = rowgroup_bwd_plan(B, U, P, cdt, resident.sm_count(dev))
-        wp_pk, wh_pk = pack_bwd_rowgroup_weights(w_h, proj, plan)
-        rows = torch.tensor(plan.row_bounds, dtype=torch.int32, device=dev)
+        with spans.span("launch.plan"):
+            plan = rowgroup_bwd_plan(B, U, P, cdt, resident.sm_count(dev))
+        with spans.span("launch.pack"):
+            wp_pk, wh_pk = pack_bwd_rowgroup_weights(w_h, proj, plan)
+        rows = resident.upload_int32(plan.row_bounds, dev)
         f32 = dict(dtype=torch.float32, device=dev)
         dxw = torch.empty((T, B, G), dtype=cdt, device=dev)
         m_out = torch.empty((T, B, U), dtype=cdt, device=dev)
@@ -1000,11 +1005,10 @@ def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
                  wo):
     """K3 (arguments and results as ``lstm_bwd_acc_reference``). CPU
     tensors take the twin; CUDA tensors launch the route ``bwd_acc_route``
-    names, each counted apart: the row-group walk and the reduction of
-    csrc/resident.cu (``launches``), the resident walk and the reduction
-    (``resident_launches``) or csrc/lstm_bwd.cu (``streaming_launches``),
-    and every route's launches together by shape (``launches_by_shape``);
-    a refused launch raises."""
+    names: the row-group walk and the reduction of csrc/resident.cu
+    ("rowgroup"), the resident walk and the reduction ("resident") or
+    csrc/lstm_bwd.cu ("streaming"), each launch counted in total, by
+    shape and by that route's name; a refused launch raises."""
     if acts.device.type == "cpu":
         return lstm_bwd_acc_reference(acts, lengths, dout, c_hist, h_hist,
                                       w_h, proj, wi, wf, wo)
@@ -1012,27 +1016,24 @@ def lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
         raise ValueError(f"no LSTM backward kernel for device {acts.device}")
     _, B, _ = acts.shape
     U, P = proj.shape
-    route = bwd_acc_route(B, U, P, w_h.dtype, resident.sm_count(acts.device))
     args = (acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf, wo)
-    if route == "rowgroup":
-        out = _launch_bwd_rowgroup(*args)
-        lstm_bwd_acc.launches += 1
-    elif route == "resident":
-        out = _launch_bwd_resident_acc(*args)
-        lstm_bwd_acc.resident_launches += 1
-    else:
-        out = _launch_bwd(*args, acc=True)
-        lstm_bwd_acc.streaming_launches += 1
-    key = shape_key(proj, B)
-    lstm_bwd_acc.launches_by_shape[key] = (
-        lstm_bwd_acc.launches_by_shape.get(key, 0) + 1)
+    with spans.span("launch.k3"):
+        with spans.span("launch.plan"):
+            route = bwd_acc_route(B, U, P, w_h.dtype,
+                                  resident.sm_count(acts.device))
+        if route == "rowgroup":
+            out = _launch_bwd_rowgroup(*args)
+        elif route == "resident":
+            out = _launch_bwd_resident_acc(*args)
+        else:
+            out = _launch_bwd(*args, acc=True)
+        spans.count_launch(lstm_bwd_acc, shape_key(proj, B), route)
     return out
 
 
-lstm_bwd_acc.launches = 0  # row-group walk + reduction launches
-lstm_bwd_acc.resident_launches = 0  # resident walk + reduction launches
-lstm_bwd_acc.streaming_launches = 0  # csrc/lstm_bwd.cu launches
-lstm_bwd_acc.launches_by_shape = {}  # the three routes' launches by shape
+lstm_bwd_acc.launches = 0  # kernel launches (walk + reduction: one)
+lstm_bwd_acc.launches_by_shape = {}  # the same launches by shape_key
+lstm_bwd_acc.launches_by_route = {}  # the same by bwd_acc_route's name
 
 
 def lstm_bwd_grid(B: int, U: int, P: int, acc: bool, bf16: bool,
@@ -1071,13 +1072,14 @@ def lstm_layer_bwd(acts, lengths, dout, c_hist, h_hist, w_h, proj, wi, wf,
     ``ACC_BWD_MIN_BATCH`` rows K2 streams dgates/m/dh out and the weight
     gradients are reduced here with ``torch.einsum``; from there K3
     reduces them in the kernel (``pallas_lstm.py`` ``lstm_layer_bwd``)."""
-    if acts.shape[1] >= ACC_BWD_MIN_BATCH:
-        return lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h, proj,
-                            wi, wf, wo)
-    dxw, m, dh = lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf,
-                          wo)
-    return (dxw,) + lstm_weight_grads(proj.shape[0], dxw, m, dh, c_hist,
-                                      h_hist)
+    with spans.span("glue.layer_bwd"):
+        if acts.shape[1] >= ACC_BWD_MIN_BATCH:
+            return lstm_bwd_acc(acts, lengths, dout, c_hist, h_hist, w_h,
+                                proj, wi, wf, wo)
+        dxw, m, dh = lstm_bwd(acts, lengths, dout, c_hist, w_h, proj, wi, wf,
+                              wo)
+        return (dxw,) + lstm_weight_grads(proj.shape[0], dxw, m, dh, c_hist,
+                                          h_hist)
 
 
 # ---------------------------------------------------------------------------
@@ -1112,13 +1114,14 @@ class LstmSeqFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        acts, lengths, c_hist, h_hist, w_h, proj, wi, wf, wo = \
-            ctx.saved_tensors
-        dxw, dwh, dproj, dbias, dwi, dwf, dwo = lstm_layer_bwd(
-            acts, lengths, dout.float().contiguous(), c_hist, h_hist, w_h,
-            proj, wi, wf, wo)
-        return (dxw.float(), None, dwh.to(w_h.dtype), dproj.to(proj.dtype),
-                dbias, dwi, dwf, dwo)
+        with spans.span("glue.seq_bwd"):
+            acts, lengths, c_hist, h_hist, w_h, proj, wi, wf, wo = \
+                ctx.saved_tensors
+            dxw, dwh, dproj, dbias, dwi, dwf, dwo = lstm_layer_bwd(
+                acts, lengths, dout.float().contiguous(), c_hist, h_hist,
+                w_h, proj, wi, wf, wo)
+            return (dxw.float(), None, dwh.to(w_h.dtype),
+                    dproj.to(proj.dtype), dbias, dwi, dwf, dwo)
 
 
 def lstm_seq(xw, lengths, w_h, proj, bias, wi, wf, wo, forget_bias=1.0,
@@ -1131,16 +1134,19 @@ def lstm_seq(xw, lengths, w_h, proj, bias, wi, wf, wo, forget_bias=1.0,
     of the saved activations. ``save_acts=False`` is the inference
     forward (K1 without the activation stream), which is not
     differentiable."""
-    T, B, _ = xw.shape
-    if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32)
-    lengths = lengths.to(device=xw.device, dtype=torch.int32).contiguous()
-    w_h = w_h.to(compute_dtype).contiguous()
-    proj = proj.to(compute_dtype).contiguous()
-    bias = fold_forget_bias(bias, forget_bias).contiguous()
-    wi, wf, wo = (w.contiguous() for w in (wi, wf, wo))
-    if not save_acts:
-        with torch.no_grad():
-            return lstm_fwd(xw.to(compute_dtype).contiguous(), lengths, w_h,
-                            proj, bias, wi, wf, wo, save_acts=False)[0]
-    return LstmSeqFn.apply(xw, lengths, w_h, proj, bias, wi, wf, wo)
+    with spans.span("glue.seq_fwd"):
+        T, B, _ = xw.shape
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32)
+        lengths = lengths.to(device=xw.device,
+                             dtype=torch.int32).contiguous()
+        w_h = w_h.to(compute_dtype).contiguous()
+        proj = proj.to(compute_dtype).contiguous()
+        bias = fold_forget_bias(bias, forget_bias).contiguous()
+        wi, wf, wo = (w.contiguous() for w in (wi, wf, wo))
+        if not save_acts:
+            with torch.no_grad():
+                return lstm_fwd(xw.to(compute_dtype).contiguous(), lengths,
+                                w_h, proj, bias, wi, wf, wo,
+                                save_acts=False)[0]
+        return LstmSeqFn.apply(xw, lengths, w_h, proj, bias, wi, wf, wo)

@@ -19,6 +19,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops import _build
 
 # Dynamic shared memory one block may use on sm_90 (227 KB).
@@ -159,12 +160,13 @@ def launch(name: str, params: ctypes.Structure, bf16: bool,
     """Launch ``name`` (one of ``LAUNCHERS``) on the current stream of
     ``device``; raises RuntimeError on a refused launch, with the shape in
     the message."""
-    lib = library()
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name)(ctypes.addressof(params), int(bf16), index,
-                             stream)
+    with spans.span("launch.call"):
+        lib = library()
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(ctypes.addressof(params), int(bf16), index,
+                                 stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed at {shape}: CUDA error {err} "
@@ -182,4 +184,19 @@ def unit_index(bounds: List[int], width: int, pad: int,
     for i in range(len(bounds) - 1):
         idx[i, :bounds[i + 1] - bounds[i]] = torch.arange(bounds[i],
                                                           bounds[i + 1])
-    return idx.to(device)
+    return upload(idx, device)
+
+
+def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``host`` copied to ``device``. From pageable memory to a card the
+    copy waits for the card's queue to drain: one ``host_wait``."""
+    with spans.span("launch.upload"):
+        if device.type != "cpu":
+            spans.count("host_wait")
+        return host.to(device)
+
+
+def upload_int32(values, device: torch.device) -> torch.Tensor:
+    """A plan's ints (bounds, rows) as an int32 tensor on ``device``
+    (``upload``)."""
+    return upload(torch.tensor(values, dtype=torch.int32), device)

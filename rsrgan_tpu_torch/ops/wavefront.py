@@ -8,8 +8,11 @@ resident kernel of ``csrc/resident.cu`` for CUDA tensors (each block of a
 one-block-per-SM grid holds one layer's slice of W_h, W_x and proj in
 shared memory for the whole launch, as ``resident_plan`` partitions
 them) and ``lstm_wavefront_fwd_reference`` for CPU tensors; they never
-fall back from one to the other. Each counts its own launches. A shape
-the plan cannot hold raises, with the shape in the message.
+fall back from one to the other. Each counts its own launches
+(``spans.count_launch``) and names its host side in a span
+(``launch.k4_decode``, ``launch.k4_train``: the plan, the packing, the
+uploads and the call within). A shape the plan cannot hold raises, with
+the shape in the message.
 
 ``_launch_resident`` at L = 1 without the residual is also K1's kernel
 where a layer's weights do not fit one SM (G width: ``ops/lstm_seq.py``
@@ -34,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops import _build, resident
 
 
@@ -321,10 +325,12 @@ def _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
     cdt, dev = wh.dtype, xw1.device
     with torch.cuda.device(dev):
         if plan is None:
-            plan = resident_plan(B, L, U, P, cdt, resident.sm_count(dev))
-        wg_pk, wp_pk = pack_wavefront_weights(wx, wh, proj, plan)
-        bounds = torch.tensor(plan.unit_bounds + plan.pair_bounds,
-                              dtype=torch.int32, device=dev)
+            with spans.span("launch.plan"):
+                plan = resident_plan(B, L, U, P, cdt, resident.sm_count(dev))
+        with spans.span("launch.pack"):
+            wg_pk, wp_pk = pack_wavefront_weights(wx, wh, proj, plan)
+        bounds = resident.upload_int32(plan.unit_bounds + plan.pair_bounds,
+                                       dev)
         f32 = dict(dtype=torch.float32, device=dev)
         h = torch.zeros((L, B, P), **f32)
         inbuf = torch.empty((2, L, B, P), **f32)
@@ -366,13 +372,6 @@ def shape_key(proj, rows: int, residual: bool) -> str:
     return f"L={L},U={U},P={P},B={rows},residual={int(residual)}"
 
 
-def count_shape(wrapper, proj, rows: int, residual: bool) -> None:
-    """One launch of ``wrapper``, in its total and by ``shape_key``."""
-    wrapper.launches += 1
-    key = shape_key(proj, rows, residual)
-    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
-
-
 def lstm_wavefront_fwd(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
                        residual=True):
     """Top tap [T, B, P] f32 of the wavefront stack, inference mode
@@ -382,9 +381,11 @@ def lstm_wavefront_fwd(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
         return lstm_wavefront_fwd_reference(xw1, lengths, x, wx, wh, proj,
                                             bias, wi, wf, wo, residual)
     _device_check(x)
-    y = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
-                         residual, save_acts=False)
-    count_shape(lstm_wavefront_fwd, proj, x.shape[1], residual)
+    with spans.span("launch.k4_decode"):
+        y = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf, wo,
+                             residual, save_acts=False)
+        spans.count_launch(lstm_wavefront_fwd,
+                           shape_key(proj, x.shape[1], residual))
     return y
 
 
@@ -409,9 +410,11 @@ def lstm_wavefront_fwd_train(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
                                             bias, wi, wf, wo, residual,
                                             save_acts=True)
     _device_check(x)
-    saved = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
-                             wo, residual, save_acts=True)
-    count_shape(lstm_wavefront_fwd_train, proj, x.shape[1], residual)
+    with spans.span("launch.k4_train"):
+        saved = _launch_resident(xw1, lengths, x, wx, wh, proj, bias, wi, wf,
+                                 wo, residual, save_acts=True)
+        spans.count_launch(lstm_wavefront_fwd_train,
+                           shape_key(proj, x.shape[1], residual))
     return saved
 
 

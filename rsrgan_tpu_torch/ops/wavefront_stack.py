@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops.lstm_seq import fold_forget_bias, lstm_layer_bwd
 from rsrgan_tpu_torch.ops.wavefront import (lstm_wavefront_fwd,
                                             lstm_wavefront_fwd_train)
@@ -85,28 +86,29 @@ class StackFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dtap_top):
-        x, lengths, taps, c_s, h_s, acts, wx, wh, proj, wi, wf, wo = \
-            ctx.saved_tensors
-        cdt = ctx.compute_dtype
-        T, B, P = x.shape
-        L = wh.shape[0]
-        # layer inputs: in_0 = x, in_k = tap_{k-1}
-        ins = [x] + [taps[k] for k in range(L - 1)]
-        dtap = dtap_top.float().contiguous()
-        grads = [None] * L
-        for k in reversed(range(L)):
-            dxw, dwh, dproj, dbias, dwi, dwf, dwo = lstm_layer_bwd(
-                acts[k], lengths, dtap, c_s[k], h_s[k], wh[k], proj[k],
-                wi[k], wf[k], wo[k])
-            dxw_f = dxw.to(cdt).float().reshape(T * B, -1)
-            d_in = (dxw_f @ wx[k].float().t()).reshape(T, B, -1)
-            dwx = ins[k].to(cdt).float().reshape(T * B, -1).t() @ dxw_f
-            grads[k] = (torch.cat([dwx, dwh], dim=0), dbias, dproj,
-                        dwi[None], dwf[None], dwo[None])
-            # d(tap_{k-1}) = d(in_k): the residual carries dtap through
-            dtap = (dtap + d_in if ctx.residual else d_in).contiguous()
-        flat_grads = [g for layer in grads for g in layer]
-        return (dtap, None, None, None, None, *flat_grads)
+        with spans.span("glue.stack_bwd"):
+            x, lengths, taps, c_s, h_s, acts, wx, wh, proj, wi, wf, wo = \
+                ctx.saved_tensors
+            cdt = ctx.compute_dtype
+            T, B, P = x.shape
+            L = wh.shape[0]
+            # layer inputs: in_0 = x, in_k = tap_{k-1}
+            ins = [x] + [taps[k] for k in range(L - 1)]
+            dtap = dtap_top.float().contiguous()
+            grads = [None] * L
+            for k in reversed(range(L)):
+                dxw, dwh, dproj, dbias, dwi, dwf, dwo = lstm_layer_bwd(
+                    acts[k], lengths, dtap, c_s[k], h_s[k], wh[k], proj[k],
+                    wi[k], wf[k], wo[k])
+                dxw_f = dxw.to(cdt).float().reshape(T * B, -1)
+                d_in = (dxw_f @ wx[k].float().t()).reshape(T, B, -1)
+                dwx = ins[k].to(cdt).float().reshape(T * B, -1).t() @ dxw_f
+                grads[k] = (torch.cat([dwx, dwh], dim=0), dbias, dproj,
+                            dwi[None], dwf[None], dwo[None])
+                # d(tap_{k-1}) = d(in_k): the residual carries dtap through
+                dtap = (dtap + d_in if ctx.residual else d_in).contiguous()
+            flat_grads = [g for layer in grads for g in layer]
+            return (dtap, None, None, None, None, *flat_grads)
 
 
 def lstm_stack_wavefront(x_bm: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -122,19 +124,20 @@ def lstm_stack_wavefront(x_bm: torch.Tensor, lengths: Optional[torch.Tensor],
     differentiable; ``save_acts=True`` is the training forward, whose
     gradients flow to ``x_bm`` and every parameter.
     """
-    B, T, _ = x_bm.shape
-    x = x_bm.transpose(0, 1).float().contiguous()       # [T, B, P]
-    if lengths is None:
-        lengths = torch.full((B,), T, dtype=torch.int32)
-    lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
-    if save_acts:
-        flat = [p[key] for p in params_list for key in _KEYS]
-        tap = StackFn.apply(x, lengths, residual, forget_bias,
-                            compute_dtype, *flat)
-    else:
-        with torch.no_grad():
-            xw1, wx_rest, wh, proj, bias, wi, wf, wo, _ = _kernel_args(
-                x, params_list, forget_bias, compute_dtype)
-            tap = lstm_wavefront_fwd(xw1, lengths, x, wx_rest, wh, proj,
-                                     bias, wi, wf, wo, residual=residual)
-    return tap.transpose(0, 1)
+    with spans.span("glue.stack_fwd"):
+        B, T, _ = x_bm.shape
+        x = x_bm.transpose(0, 1).float().contiguous()       # [T, B, P]
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int32)
+        lengths = lengths.to(device=x.device, dtype=torch.int32).contiguous()
+        if save_acts:
+            flat = [p[key] for p in params_list for key in _KEYS]
+            tap = StackFn.apply(x, lengths, residual, forget_bias,
+                                compute_dtype, *flat)
+        else:
+            with torch.no_grad():
+                xw1, wx_rest, wh, proj, bias, wi, wf, wo, _ = _kernel_args(
+                    x, params_list, forget_bias, compute_dtype)
+                tap = lstm_wavefront_fwd(xw1, lengths, x, wx_rest, wh, proj,
+                                         bias, wi, wf, wo, residual=residual)
+        return tap.transpose(0, 1)

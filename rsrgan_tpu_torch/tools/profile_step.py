@@ -21,9 +21,13 @@ ended by a sync. The report, of the profiled steps:
   step by the ``rsrgan_tpu_torch`` module and function on the profiler's
   Python stack (each instant to the innermost such frame; frames of
   threads other than the main one, autograd's, marked so), with the
-  weight packing (``pack_*``), the plan building (``*_plan``), the launch
-  calls and the runtime calls that wait for the device (copies from
-  pageable memory, synchronizes) summed apart. ``with_stack`` slows the
+  launch calls and the runtime calls that wait for the device (copies
+  from pageable memory, synchronizes) summed apart, and the self time of
+  the program's spans (``rsrgan_tpu_torch/spans.py``, in the trace as
+  ``record_function`` ranges) of the kernels' host side (``launch.pack``
+  the weight packing, ``launch.plan`` the plans, ``launch.upload`` the
+  blocking uploads, ``launch.call`` the launch setup), of the optimizer
+  (``opt.*``) and of the feed (``feed.*``). ``with_stack`` slows the
   host's Python (more so in Python-heavy code), so the profiled wall
   time is longer than the unprofiled one printed beside it.
 
@@ -107,20 +111,38 @@ def merge(intervals) -> List[List[float]]:
     return out
 
 
-def port_frames(events, w0: float, w1: float) -> Dict[int, list]:
-    """Per thread, the ``rsrgan_tpu_torch`` Python frames cut to the
-    window [w0, w1] as [start, end, key, exclusive µs] sorted by start
-    (outer before inner at a tie); each frame's exclusive time is its
-    duration less that of the port frames directly inside it."""
+def thread_frames(events, w0: float, w1: float, key) -> Dict[int, list]:
+    """Per thread, the events that ``key`` names (it returns a name or
+    None) cut to the window [w0, w1], as ``nest`` gives them."""
     by_tid = collections.defaultdict(list)
     for e in events:
-        if e.get("cat") != "python_function":
-            continue
-        m = PORT_FRAME.search(e["name"])
+        k = key(e)
         s, t = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
-        if m and t > s:
-            key = f"{m.group(1)}:{m.group(2)}"
-            by_tid[e["tid"]].append([s, t, key, t - s])
+        if k is not None and t > s:
+            by_tid[e["tid"]].append([s, t, k, t - s])
+    return nest(by_tid)
+
+
+def port_key(e: dict) -> Optional[str]:
+    """``module.py:function`` of an ``rsrgan_tpu_torch`` Python frame."""
+    m = (PORT_FRAME.search(e["name"])
+         if e.get("cat") == "python_function" else None)
+    return f"{m.group(1)}:{m.group(2)}" if m else None
+
+
+def span_key(e: dict) -> Optional[str]:
+    """The name of one of the program's spans (a ``record_function``
+    range that is not a step's own)."""
+    if (e.get("cat") == "user_annotation"
+            and not e["name"].startswith(STEP_RANGE)):
+        return e["name"]
+    return None
+
+
+def nest(by_tid: Dict[int, list]) -> Dict[int, list]:
+    """Each thread's [start, end, key, exclusive µs] frames sorted by
+    start (outer before inner at a tie); each frame's exclusive time is
+    its duration less that of the frames directly inside it."""
     for frames in by_tid.values():
         frames.sort(key=lambda f: (f[0], -f[1]))
         stack: list = []
@@ -170,7 +192,7 @@ def analyse(events: List[dict], steps: int) -> dict:
             for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]]
     gaps.sort(key=lambda g: -g[1])
 
-    frames = port_frames(host, w0, w1)
+    frames = thread_frames(host, w0, w1, port_key)
     main_tid = (ranges[0]["tid"] if ranges
                 else max(frames, key=lambda t: len(frames[t]))
                 if frames else None)
@@ -188,17 +210,14 @@ def analyse(events: List[dict], steps: int) -> dict:
         return [k + ("" if tid == main_tid else OTHER_THREAD)
                 for tid in tids if (k := innermost(frames.get(tid, []), t))]
 
-    def inclusive(pred) -> float:
-        """µs inside the frames whose function ``pred`` names, outermost
-        only (a frame inside another counted one is not added)."""
-        total = 0.0
-        for tid_frames in frames.values():
-            end = -1.0
-            for f in tid_frames:
-                if f[0] >= end and pred(f[2].split(":")[1]):
-                    total += f[1] - f[0]
-                    end = f[1]
-        return total
+    own = collections.Counter()   # the spans' self µs over the threads
+    for tid_frames in thread_frames(host, w0, w1, span_key).values():
+        for f in tid_frames:
+            own[f[2]] += f[3]
+
+    def self_ms(prefix: str) -> float:
+        return per_step(sum(us for name, us in own.items()
+                            if name.startswith(prefix)))
 
     launches = [e for e in host if LAUNCH_CALLS.match(e["name"])
                 and w0 <= e["ts"] < w1]
@@ -240,10 +259,12 @@ def analyse(events: List[dict], steps: int) -> dict:
             "launch calls": per_step(sum(e["dur"] for e in launches)),
             "waits for the device (cudaMemcpy*, *Synchronize)": per_step(
                 sum(e["dur"] for e in waits)),
-            "weight packing (pack_*)": per_step(inclusive(
-                lambda fn: fn.startswith("pack_"))),
-            "plans (*_plan)": per_step(inclusive(
-                lambda fn: fn.endswith("_plan"))),
+            "weight packing (launch.pack)": self_ms("launch.pack"),
+            "plans (launch.plan)": self_ms("launch.plan"),
+            "uploads (launch.upload)": self_ms("launch.upload"),
+            "launch setup (launch.call)": self_ms("launch.call"),
+            "optimizer (opt.*)": self_ms("opt."),
+            "feed (feed.*)": self_ms("feed."),
             "top-level aten ops": per_step(sum(e["dur"] for e in top_ops)),
             "copies (top-level aten::copy_/to/clone/contiguous)": per_step(
                 sum(e["dur"] for e in top_ops if e["name"] in COPY_OPS)),

@@ -50,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.models.bridge import batch_stats_tree
 from rsrgan_tpu_torch.ops.common import MaskSource
 from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
@@ -188,29 +189,35 @@ class GanTrainer:
     def _g_update(self, state: GanState, g_out, inputs, labels, lengths,
                   hp, noise) -> Dict[str, torch.Tensor]:
         """One G update from a G forward kept for autograd."""
-        adv, mse = self._g_head(g_out, inputs, labels, lengths, hp, noise)
-        l2 = l2_loss_nonbias(state.g.params(), self.l2_scale)
-        g_loss = adv + hp["mse_lambda"] * mse + l2
-        grads, metrics = world_mean(
-            self._grads(g_loss, state.g),
-            {"g_adv_loss": adv.detach(), "g_mse_loss": mse.detach(),
-             "g_l2_loss": l2.detach(), "g_loss": g_loss.detach()})
-        self._update("g", state.g, grads, hp["g_lr"])
-        return metrics
+        with spans.span("train.g_update"):
+            adv, mse = self._g_head(g_out, inputs, labels, lengths, hp,
+                                    noise)
+            l2 = l2_loss_nonbias(state.g.params(), self.l2_scale)
+            g_loss = adv + hp["mse_lambda"] * mse + l2
+            grads, metrics = world_mean(
+                self._grads(g_loss, state.g),
+                {"g_adv_loss": adv.detach(), "g_mse_loss": mse.detach(),
+                 "g_l2_loss": l2.detach(), "g_loss": g_loss.detach()})
+            self._update("g", state.g, grads, hp["g_lr"])
+            return metrics
 
     def _d_update(self, state: GanState, fake, inputs, labels, lengths, hp,
                   noise) -> Dict[str, torch.Tensor]:
         """One D update against a detached G output."""
-        d_loss, m, _ = self._d_loss(fake, inputs, labels, lengths, hp, noise)
-        grads, metrics = world_mean(self._grads(d_loss, state.d),
-                                    {k: v.detach() for k, v in m.items()})
-        self._update("d", state.d, grads, hp["d_lr"])
-        return metrics
+        with spans.span("train.d_update"):
+            d_loss, m, _ = self._d_loss(fake, inputs, labels, lengths, hp,
+                                        noise)
+            grads, metrics = world_mean(
+                self._grads(d_loss, state.d),
+                {k: v.detach() for k, v in m.items()})
+            self._update("d", state.d, grads, hp["d_lr"])
+            return metrics
 
     def _grads(self, loss, net: NetState) -> Dict[str, torch.Tensor]:
         params = net.params()
         names = list(params)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
         return dict(zip(names, grads))
 
     def _update(self, tag: str, net: NetState, grads, lr: float) -> None:
@@ -227,32 +234,33 @@ class GanTrainer:
                    ) -> Dict[str, torch.Tensor]:
         """disc_updates D steps + gen_updates G steps on one batch; returns
         the metrics (device scalars, averaged over the steps)."""
-        metrics: Dict[str, torch.Tensor] = {}
-        share = self._share_g_forward()
-        if share:
-            g_out = self._g(inputs, lengths, True)
-            fake_shared = g_out.detach()
-
-        for _ in range(self.disc_updates):
+        with spans.span("train.step"):
+            metrics: Dict[str, torch.Tensor] = {}
+            share = self._share_g_forward()
             if share:
-                fake = fake_shared
-            else:
-                with torch.no_grad():
-                    fake = self._g(inputs, lengths, True)
-            m = self._d_update(state, fake, inputs, labels, lengths, hp,
-                               noise)
-            for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v / self.disc_updates
-
-        for g_iter in range(self.gen_updates):
-            if not (share and g_iter == 0):
                 g_out = self._g(inputs, lengths, True)
-            m = self._g_update(state, g_out, inputs, labels, lengths, hp,
-                               noise)
-            for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v / self.gen_updates
-        state.step += 1
-        return metrics
+                fake_shared = g_out.detach()
+
+            for _ in range(self.disc_updates):
+                if share:
+                    fake = fake_shared
+                else:
+                    with torch.no_grad():
+                        fake = self._g(inputs, lengths, True)
+                m = self._d_update(state, fake, inputs, labels, lengths, hp,
+                                   noise)
+                for k, v in m.items():
+                    metrics[k] = metrics.get(k, 0.0) + v / self.disc_updates
+
+            for g_iter in range(self.gen_updates):
+                if not (share and g_iter == 0):
+                    g_out = self._g(inputs, lengths, True)
+                m = self._g_update(state, g_out, inputs, labels, lengths, hp,
+                                   noise)
+                for k, v in m.items():
+                    metrics[k] = metrics.get(k, 0.0) + v / self.gen_updates
+            state.step += 1
+            return metrics
 
     def _share_g_forward(self) -> bool:
         """Safe iff G has no sample-dependent stochastic layers."""

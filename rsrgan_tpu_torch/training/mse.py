@@ -33,6 +33,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops.common import MaskSource
 from rsrgan_tpu_torch.ops.gather import assemble_sequence_batch
 from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
@@ -91,23 +92,26 @@ class MseTrainer:
                    lr: float) -> Dict[str, torch.Tensor]:
         """One update on one batch; returns the metrics (device
         scalars)."""
-        g_out = self._g(inputs, lengths, True)
-        mse = g_mse_loss(g_out, labels, self.output_dim)
-        params = state.net.params()
-        l2 = l2_loss_nonbias(params, self.l2_scale)
-        loss = mse + l2
-        names = list(params)
-        grads, metrics = world_mean(
-            dict(zip(names, torch.autograd.grad(
-                loss, [params[n] for n in names]))),
-            {"g_mse_loss": mse.detach(), "g_l2_loss": l2.detach(),
-             "g_loss": loss.detach()})
-        if self.grad_log is not None:
-            self.grad_log.append({k: g.detach().clone()
-                                  for k, g in grads.items()})
-        state.net.apply_gradients(grads, lr, self.ema_decay)
-        state.step += 1
-        return metrics
+        with spans.span("train.step"):
+            g_out = self._g(inputs, lengths, True)
+            mse = g_mse_loss(g_out, labels, self.output_dim)
+            params = state.net.params()
+            l2 = l2_loss_nonbias(params, self.l2_scale)
+            loss = mse + l2
+            names = list(params)
+            with spans.span("train.backward"):
+                grads = torch.autograd.grad(loss,
+                                            [params[n] for n in names])
+            grads, metrics = world_mean(
+                dict(zip(names, grads)),
+                {"g_mse_loss": mse.detach(), "g_l2_loss": l2.detach(),
+                 "g_loss": loss.detach()})
+            if self.grad_log is not None:
+                self.grad_log.append({k: g.detach().clone()
+                                      for k, g in grads.items()})
+            state.net.apply_gradients(grads, lr, self.ema_decay)
+            state.step += 1
+            return metrics
 
     @torch.no_grad()
     def eval_step(self, state: MseState, inputs, labels,

@@ -35,6 +35,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.models.bridge import (collections_tree,
                                             load_collections)
 from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
@@ -75,6 +76,9 @@ class Adam:
         count = state["count"] + 1
         state["count"] = count.to(torch.int32)
         c = count.to(torch.float32)
+        if c.device.type != "cpu":
+            # the two scalars below are copied from pageable memory
+            spans.count("host_wait", 2)
         bc1 = 1.0 - torch.pow(torch.tensor(self.b1, device=c.device), c)
         bc2 = 1.0 - torch.pow(torch.tensor(self.b2, device=c.device), c)
         updates = {}
@@ -240,17 +244,20 @@ class NetState:
     @torch.no_grad()
     def apply_gradients(self, grads: Tree, lr: float,
                         ema_decay: float) -> None:
-        grads = clip_by_norm_each(grads, self.max_grad_norm)
-        if self.shards:
-            grads = self.blocks(grads)
-        updates = self.tx.update(grads, self.opt_state)
-        gathered = []
-        for k, p in self.params().items():
-            if k in self.shards:
-                whole, axis = p, self.shards[k]
-                p = model_block(current_world(), whole, axis).clone()
-                gathered.append((whole, p, axis))
-            p.sub_(lr * updates[k])
-            e = self.ema[k]
-            e.sub_((1.0 - ema_decay) * (e - p))
-        gather_blocks(current_world(), gathered)
+        with spans.span("opt.clip"):
+            grads = clip_by_norm_each(grads, self.max_grad_norm)
+            if self.shards:
+                grads = self.blocks(grads)
+        with spans.span("opt.update"):
+            updates = self.tx.update(grads, self.opt_state)
+        with spans.span("opt.apply"):
+            gathered = []
+            for k, p in self.params().items():
+                if k in self.shards:
+                    whole, axis = p, self.shards[k]
+                    p = model_block(current_world(), whole, axis).clone()
+                    gathered.append((whole, p, axis))
+                p.sub_(lr * updates[k])
+                e = self.ema[k]
+                e.sub_((1.0 - ema_decay) * (e - p))
+            gather_blocks(current_world(), gathered)

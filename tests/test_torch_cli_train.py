@@ -10,6 +10,7 @@ and D, ``--g_type=lstm`` trains and decodes alike in both packages,
 ``--profile_dir`` writes one trace, of the second iteration. Without
 ``--device=cpu`` and without a card, training raises."""
 
+import json
 import os
 import shutil
 
@@ -142,10 +143,16 @@ def test_profile_dir_traces_the_second_iteration(corpus, trained, tmp_path,
                                                  capsys, loop):
     """--profile_dir: two iterations (epochs of the frame loop) write one
     torch.profiler trace there, of the second, as the JAX CLI traces its
-    second; a run without the flag writes none."""
+    second; a run without the flag writes none. The trace carries the
+    program's spans: the step and the optimizer's update, and on the
+    sequence loop's device feed its plans."""
     prof_dir = str(tmp_path / "prof")
     flags = train_flags(corpus, str(tmp_path / "run"), "--device=cpu",
                         "--tensorboard=false", f"--profile_dir={prof_dir}")
+    want = {"train.step", "opt.update"}
+    if loop == "sequence":
+        flags += ["--device_feed=on"]
+        want.add("feed.plan")
     flags = [f for f in flags if not f.startswith(("--max_epoches",
                                                     "--min_epoches"))]
     flags += ["--max_epoches=2", "--min_epoches=2"]
@@ -159,6 +166,10 @@ def test_profile_dir_traces_the_second_iteration(corpus, trained, tmp_path,
     out = capsys.readouterr().out
     traces = [n for n in os.listdir(prof_dir) if n.endswith(TRACE_SUFFIX)]
     assert len(traces) == 1
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"}
+    assert want <= names
     assert out.count("Wrote profiler trace to") == 1
     second = "2/2 (INFO)" if loop == "sequence" else "Epoch 2 (TRAIN"
     assert (out.index("1/2 (INFO)" if loop == "sequence" else "Epoch 1 (")

@@ -503,8 +503,8 @@ def bwd_acc_args(device, cdt, rows, U_, P_, seed):
 
 def k3_counts(ls):
     """K3's launches by route: row-group, resident, streaming."""
-    return (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.resident_launches,
-            ls.lstm_bwd_acc.streaming_launches)
+    return tuple(ls.lstm_bwd_acc.launches_by_route.get(route, 0)
+                 for route in ("rowgroup", "resident", "streaming"))
 
 
 @pytest.mark.cuda

@@ -275,8 +275,8 @@ def test_wrapper_counts_nothing_off_the_card():
     args = bwd_args(np.random.default_rng(1), 5, 32, 13, 9)
 
     def counts():
-        return (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.resident_launches,
-                ls.lstm_bwd_acc.streaming_launches)
+        return (ls.lstm_bwd_acc.launches,
+                dict(ls.lstm_bwd_acc.launches_by_route))
 
     before = counts()
     for g, w in zip(ls.lstm_bwd_acc(*args), ls.lstm_bwd_acc_reference(*args)):

@@ -376,11 +376,12 @@ def test_emulation_matches_bwd_pallas_acc():
 
 def test_wrapper_raises_for_other_devices():
     args = bwd_args(np.random.default_rng(0), 5, 3, 13, 9)
-    before = (ls.lstm_bwd_acc.launches, ls.lstm_bwd_acc.streaming_launches)
+    before = (ls.lstm_bwd_acc.launches,
+              dict(ls.lstm_bwd_acc.launches_by_route))
     with pytest.raises(ValueError, match="no LSTM backward kernel"):
         ls.lstm_bwd_acc(*(a.to("meta") for a in args))
     assert (ls.lstm_bwd_acc.launches,
-            ls.lstm_bwd_acc.streaming_launches) == before
+            ls.lstm_bwd_acc.launches_by_route) == before
 
 
 # ---------------------------------------------------------------------------

@@ -163,7 +163,11 @@ def synthetic_trace(path):
     inside the packing, three
     kernel launches (20 µs each, two of them inside lstm_fwd), and the
     train step's frame around it all; and on another thread (the
-    autograd engine) a backward frame of 2000 µs."""
+    autograd engine) a backward frame of 2000 µs. The program's spans a
+    step: the step around it all, the launch's around lstm_fwd, holding
+    the packing (1000 µs, an upload of 100 inside), the plan (500) and
+    the call (40); the optimizer's update (300) and apply (100) and the
+    feed's gather (50); on the other thread the stack's backward."""
     ev = [{"ph": "M", "name": "process_name", "pid": 1, "tid": 0}]
     for s in range(2):
         t = 100_000 + s * 10_000
@@ -177,6 +181,17 @@ def synthetic_trace(path):
                py("rsrgan_tpu_torch/ops/lstm_seq.py", "rowgroup_plan",
                   t + 1_300, 500),
                py("torch/nn/modules/module.py", "_call_impl", t + 210, 5),
+               X("user_annotation", "train.step", t + 10, 9_900),
+               X("user_annotation", "feed.gather", t + 20, 50),
+               X("user_annotation", "launch.k1", t + 100, 4_000),
+               X("user_annotation", "launch.pack", t + 200, 1_000),
+               X("user_annotation", "launch.upload", t + 250, 100),
+               X("user_annotation", "launch.plan", t + 1_300, 500),
+               X("user_annotation", "launch.call", t + 1_990, 40),
+               X("user_annotation", "opt.update", t + 8_500, 300),
+               X("user_annotation", "opt.apply", t + 8_850, 100),
+               X("user_annotation", "glue.stack_bwd", t + 6_000, 2_000,
+                 tid=2),
                X("cpu_op", "aten::copy_", t + 300, 300),
                X("cuda_runtime", "cudaMemcpyAsync", t + 450, 100),
                X("cpu_op", "aten::mm", t + 5_000, 200),
@@ -247,8 +262,13 @@ def test_profile_step_report_of_a_synthetic_trace(tmp_path, capsys):
     assert split["launch calls"] == pytest.approx(0.06)
     assert split["waits for the device (cudaMemcpy*, *Synchronize)"] == \
         pytest.approx(0.1)
-    assert split["weight packing (pack_*)"] == pytest.approx(1.0)
-    assert split["plans (*_plan)"] == pytest.approx(0.5)
+    # the spans' self time: the packing less the upload inside it
+    assert split["weight packing (launch.pack)"] == pytest.approx(0.9)
+    assert split["plans (launch.plan)"] == pytest.approx(0.5)
+    assert split["uploads (launch.upload)"] == pytest.approx(0.1)
+    assert split["launch setup (launch.call)"] == pytest.approx(0.04)
+    assert split["optimizer (opt.*)"] == pytest.approx(0.4)
+    assert split["feed (feed.*)"] == pytest.approx(0.05)
     assert split["top-level aten ops"] == pytest.approx(0.5)
     assert split["copies (top-level aten::copy_/to/clone/contiguous)"] == \
         pytest.approx(0.3)
@@ -269,6 +289,8 @@ def test_profile_step_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert "training/state.py:update" in by_fn
     assert "ops/wavefront.py:lstm_wavefront_fwd_reference" in by_fn
     assert sum(by_fn.values()) <= out["wall_ms_per_step"] * 1.01
+    # the program's spans are in the trace: the optimizer's host time
+    assert out["host_split_ms_per_step"]["optimizer (opt.*)"] > 0
     again = profile_step.report(str(path), 2)
     assert again["host_ms_per_step_by_function"] == pytest.approx(by_fn)
 
