@@ -50,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -173,6 +174,7 @@ ROW_TILE = 16   # most rows a block: one mma tile of M (kRows)
 ROW_WARPS = 16  # warps per block (kRowWarps)
 
 
+@functools.lru_cache(maxsize=None)
 def rowgroup_plan(B: int, U: int, P: int, dtype: torch.dtype,
                   sms: int) -> FwdPlan:
     """K1's launch on a card with ``sms`` SMs: ceil(B / group_rows)
@@ -595,6 +597,7 @@ RESIDENT_THREADS = 256  # threads a block of the resident grids (kThreads)
 ACC_CELLS = 8           # (row, unit) cells a thread sums in acc mode
 
 
+@functools.lru_cache(maxsize=None)
 def resident_plan(B: int, U: int, P: int, dtype: torch.dtype,
                   sms: int, acc: bool = False) -> BwdPlan:
     """K2's grid on a card with ``sms`` SMs: one block per SM, at most one
@@ -771,6 +774,7 @@ ROW_THREADS = 32 * ROW_WARPS
 EPI_PER_THREAD = 2  # the walk's epilogue elements a thread (kEpi)
 
 
+@functools.lru_cache(maxsize=None)
 def rowgroup_bwd_plan(B: int, U: int, P: int, dtype: torch.dtype,
                       sms: int) -> RowBwdPlan:
     """K3's walk on a card with ``sms`` SMs: ceil(B / group_rows) blocks
@@ -845,6 +849,7 @@ def pack_bwd_rowgroup_weights(w_h, proj, plan: RowBwdPlan):
     return wp_pk, wh_pk
 
 
+@functools.lru_cache(maxsize=None)
 def rowgroup_bwd_route(B: int, U: int, P: int, sms: int) -> bool:
     """Whether K3 at these sizes takes the row-group walk (on a card with
     ``sms`` SMs): where the layer's bf16 weights all fit in one block, as
@@ -905,6 +910,7 @@ class WgradPlan:
     rows_proj: int
 
 
+@functools.lru_cache(maxsize=None)
 def wgrad_plan(T: int, B: int, U: int, P: int, sms: int) -> WgradPlan:
     """K split so that the (slice, tile) blocks give every SM at least
     WG_FILL (G width: 300 tiles in 2 slices; the D layer: 20 in 27), where

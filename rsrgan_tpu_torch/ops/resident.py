@@ -10,6 +10,14 @@ which block owns which rows, units and P columns, the padded sizes of the
 in-block products and the shared-memory layout; the kernel reads all of
 it from the parameter block and computes none of it itself, so the CPU
 tests can check the partition without a card.
+
+A launch's setup that depends only on its shape is made once: the plan
+functions are memoised (``functools.lru_cache``: a plan is shared by
+every call with the same arguments, so neither it nor its ``offsets``
+is ever written), and the unit index and the bounds or rows the kernels
+read are built and copied to the card once per key (``unit_index``,
+``upload_int32``), so that a launch after the first of its shape copies
+nothing from pageable memory and never waits for the card's queue.
 """
 
 from __future__ import annotations
@@ -177,19 +185,50 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def unit_index(bounds: List[int], width: int, pad: int,
+# The device constants of the launches: each plan's unit index and its
+# bounds or rows, keyed on the exact content they are made from and on the
+# device. Read-only by contract: the kernels read them through
+# ``const int*`` and nothing in the port writes them.
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _constant(key: tuple, build, device) -> torch.Tensor:
+    """The tensor ``key`` names on ``device``: built by ``build()`` and
+    uploaded on the first call of (key, device) (``launch.setup_miss``),
+    the same tensor on every later call (``launch.setup_hit``)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key += (device,)
+    t = _CONSTANTS.get(key)
+    if t is not None:
+        spans.count("launch.setup_hit")
+        return t
+    spans.count("launch.setup_miss")
+    # two threads that miss the same key at once both build; one tensor
+    # is kept
+    return _CONSTANTS.setdefault(key, upload(build(), device))
+
+
+def unit_index(bounds: Tuple[int, ...], width: int, pad: int,
                device) -> torch.Tensor:
-    """[parts, width] int64: slice i's units, padded with ``pad``."""
-    idx = torch.full((len(bounds) - 1, width), pad, dtype=torch.int64)
-    for i in range(len(bounds) - 1):
-        idx[i, :bounds[i + 1] - bounds[i]] = torch.arange(bounds[i],
-                                                          bounds[i + 1])
-    return upload(idx, device)
+    """[parts, width] int64 on ``device``: slice i's units, padded with
+    ``pad``. Built and copied once per (bounds, width, pad, device); every
+    later call returns the same read-only tensor."""
+    def build():
+        b = torch.tensor(bounds, dtype=torch.int64)
+        cols = torch.arange(width)
+        return torch.where(cols < (b[1:] - b[:-1])[:, None],
+                           b[:-1, None] + cols, pad)
+    return _constant(("unit_index", tuple(bounds), width, pad), build,
+                     device)
 
 
 def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``host`` copied to ``device``. From pageable memory to a card the
-    copy waits for the card's queue to drain: one ``host_wait``."""
+    copy waits for the card's queue to drain: one ``host_wait``. The
+    launches copy through ``unit_index`` and ``upload_int32``, once per
+    key."""
     with spans.span("launch.upload"):
         if device.type != "cpu":
             spans.count("host_wait")
@@ -197,6 +236,9 @@ def upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 def upload_int32(values, device: torch.device) -> torch.Tensor:
-    """A plan's ints (bounds, rows) as an int32 tensor on ``device``
-    (``upload``)."""
-    return upload(torch.tensor(values, dtype=torch.int32), device)
+    """A plan's ints (bounds, rows) as an int32 tensor on ``device``,
+    copied (``upload``) once per (values, device); every later call
+    returns the same read-only tensor."""
+    values = tuple(values)
+    return _constant(("int32", values),
+                     lambda: torch.tensor(values, dtype=torch.int32), device)

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -239,6 +240,7 @@ class WavefrontPlan:
 SINGLE_LAYER_UNITS = {torch.bfloat16: 16, torch.float32: 8}
 
 
+@functools.lru_cache(maxsize=None)
 def resident_plan(B: int, L: int, U: int, P: int, dtype: torch.dtype,
                   sms: int, nbl: Optional[int] = None) -> WavefrontPlan:
     """K4's grid on a card with ``sms`` SMs: ``nbl`` blocks per layer

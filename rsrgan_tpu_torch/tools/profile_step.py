@@ -27,7 +27,11 @@ ended by a sync. The report, of the profiled steps:
   ``record_function`` ranges) of the kernels' host side (``launch.pack``
   the weight packing, ``launch.plan`` the plans, ``launch.upload`` the
   blocking uploads, ``launch.call`` the launch setup), of the optimizer
-  (``opt.*``) and of the feed (``feed.*``). ``with_stack`` slows the
+  (``opt.*``) and of the feed (``feed.*``), and beside them the share of
+  the launches' device constants (unit index, bounds, rows) the profiled
+  steps reused (``launch.setup_hit`` against ``launch.setup_miss``, from
+  the program's counters; after the warm-up step every launch reuses
+  its shape's). ``with_stack`` slows the
   host's Python (more so in Python-heavy code), so the profiled wall
   time is longer than the unprofiled one printed beside it.
 
@@ -311,6 +315,12 @@ def report(trace_path: str, steps: int, extra: Optional[dict] = None
         print(f"   {ms:8.3f} ms/step  {k}")
     for k, ms in out["host_split_ms_per_step"].items():
         print(f"   {ms:8.3f} ms/step  {k}")
+        if k.endswith("(launch.call)") and out.get("launch_setup_hit_share"
+                                                   ) is not None:
+            print(f"   {out['launch_setup_hit_share']:8.4f} share of the "
+                  f"launches' device constants reused (launch.setup_hit: "
+                  f"{out['launch_setup_hits']} hits, "
+                  f"{out['launch_setup_misses']} misses)")
     line = {"metric": "profile_step", "trace": trace_path,
             **{k: v for k, v in out.items() if k != "kernels"},
             "kernels": out["kernels"][:TOP_KERNELS]}
@@ -323,6 +333,7 @@ def profile(B: int, T: int, steps: int, device, trace_path: str) -> dict:
     ``trace_path``; the unprofiled wall ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, record_function
+    from rsrgan_tpu_torch import spans
     from rsrgan_tpu_torch.tools import card
     from rsrgan_tpu_torch.tools.kernel_bench import (D_SIZES, G_SIZES,
                                                      HPARAMS,
@@ -350,14 +361,21 @@ def profile(B: int, T: int, steps: int, device, trace_path: str) -> dict:
     unprofiled = (time.perf_counter() - t0) * 1e3 / steps
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    spans.clear()
     with torch.profiler.profile(activities=activities,
                                 with_stack=True) as prof:
         for i in range(steps):
             with record_function(f"{STEP_RANGE}{i}"):
                 step()
     prof.export_chrome_trace(trace_path)
+    counts = spans.read()
+    spans.clear()
+    hits, misses = (counts.total(f"launch.setup_{k}") for k in ("hit", "miss"))
     return {"B": B, "T": T, "true_frames": int(lengths.sum()),
-            "unprofiled_wall_ms_per_step": unprofiled}
+            "unprofiled_wall_ms_per_step": unprofiled,
+            "launch_setup_hits": hits, "launch_setup_misses": misses,
+            "launch_setup_hit_share": (hits / (hits + misses)
+                                       if hits + misses else None)}
 
 
 def main(argv=None) -> int:

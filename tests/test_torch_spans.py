@@ -2,8 +2,9 @@
 they record nothing and never enter ``record_function``; armed they
 record nesting, threads, units and counts, within their cap; under a
 ``torch.profiler`` they are armed and land in its trace; the train and
-decode paths reach the spans of their layers; on the card each kernel
-launch counts its blocking copies.
+decode paths reach the spans of their layers; on the card a kernel
+launch counts its blocking copies, which only the first launch of a
+shape makes.
 
 The file imports torch and the port only; its ``cuda`` test runs on the
 card with
@@ -332,26 +333,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def waits_inside(r, span):
-    return sum(c.n for c in r.counts if c.name == "host_wait"
+def inside(r, span, name):
+    """The counts of ``name`` on ``span``'s thread while it was open."""
+    return sum(c.n for c in r.counts if c.name == name
                and c.thread == span.thread
                and span.start_ns <= c.t_ns <= span.end_ns)
 
 
 @pytest.mark.cuda
 def test_host_waits_per_launch_match_the_launch_counters(record,
-                                                         cuda_device):
+                                                         cuda_device,
+                                                         monkeypatch):
     """K4 (train and decode), K1 on both routes, K2 and K3 on its
-    row-group and resident routes, and an Adam update, armed: two
-    ``host_wait`` a K2 and a K4 launch (the unit index and the bounds),
-    one a row-group K1 or K3 launch (its rows), two where K1 or K3
-    takes a resident grid, two an Adam update (its two scalars); the
-    launch spans hold the plan, the packing, the uploads and the call."""
+    row-group and resident routes, and an Adam update, armed, twice over
+    the same shapes from an empty cache of device constants
+    (``ops/resident.py``). First pass: a launch copies each of its
+    constants (the unit index and the bounds of a K2, K4 or resident-route
+    K1/K3 launch, the rows of a row-group K1/K3 launch) that no launch
+    before it copied, one ``host_wait`` and one ``launch.setup_miss``
+    each; second pass: no launch copies anything, each reuses its two
+    constants or its one (``launch.setup_hit``). An Adam update makes two
+    ``host_wait`` (its two scalars) in each pass. The launch spans hold
+    the plan, the packing, the uploads and the call."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
+    from rsrgan_tpu_torch.ops import resident
     from rsrgan_tpu_torch.ops import wavefront as wf
     from rsrgan_tpu_torch.ops.wavefront_stack import _kernel_args
     from rsrgan_tpu_torch.training.state import NetState
 
+    monkeypatch.setattr(resident, "_CONSTANTS", {})
     gen = torch.Generator().manual_seed(3)
     dev = cuda_device
 
@@ -367,59 +377,75 @@ def test_host_waits_per_launch_match_the_launch_counters(record,
     routes = {"k1": ls.lstm_fwd, "k2": ls.lstm_bwd, "k3": ls.lstm_bwd_acc,
               "k4_train": wf.lstm_wavefront_fwd_train,
               "k4_decode": wf.lstm_wavefront_fwd}
-    before = {k: (w.launches, dict(getattr(w, "launches_by_route", {})))
-              for k, w in routes.items()}
-    spans.enable()
-    for T, B, U, P in ((9, 16, 256, 40), (9, 32, 256, 40),
-                       (9, 16, 760, 257), (9, 32, 760, 257)):
-        xw, lens, w_h, proj, bias, wi, wf_, wo = layer(T, B, U, P, bf16)
-        out, c, h, acts = ls.lstm_fwd(xw, lens, w_h, proj, bias, wi, wf_,
-                                      wo)
-        dout = u(T, B, P)
-        ls.lstm_layer_bwd(acts, lens, dout, c, h, w_h, proj, wi, wf_, wo)
-    x = u(9, 8, 40)
-    params = [{"kernel": u(80, 4 * 256), "bias": u(4 * 256),
-               "proj_kernel": u(256, 40), "w_i_diag": u(1, 256),
-               "w_f_diag": u(1, 256), "w_o_diag": u(1, 256)}
-              for _ in range(2)]
-    xw1, wx, wh, proj, bias, wi, wf_, wo, _ = _kernel_args(x, params, 1.0,
-                                                           bf16)
-    lens = torch.full((8,), 9, dtype=torch.int32, device=dev)
-    wf.lstm_wavefront_fwd_train(xw1, lens, x, wx, wh, proj, bias, wi, wf_,
-                                wo, residual=False)
-    wf.lstm_wavefront_fwd(xw1, lens, x, wx, wh, proj, bias, wi, wf_, wo,
-                          residual=False)
-    net = NetState(torch.nn.Linear(3, 2).to(dev), "adam", 15.0)
-    net.apply_gradients({k: torch.ones_like(p) for k, p in
-                         net.params().items()}, 1e-3, 0.999)
-    torch.cuda.synchronize()
-    spans.disable()
-    r = spans.read()
-    launched = {k: w.launches - before[k][0] for k, w in routes.items()}
-    by_route = {k: {n: m - before[k][1].get(n, 0) for n, m in
-                    getattr(w, "launches_by_route", {}).items()}
-                for k, w in routes.items()}
-    assert launched == {"k1": 4, "k2": 2, "k3": 2, "k4_train": 1,
-                        "k4_decode": 1}
-    assert by_route["k1"] == {"rowgroup": 2, "resident": 2}
-    assert by_route["k3"] == {"rowgroup": 1, "resident": 1}
-    per_launch = {k: [waits_inside(r, s) for s in r.spans
-                      if s.name == f"launch.{k}"] for k in routes}
-    assert {k: len(v) for k, v in per_launch.items()} == launched
-    assert per_launch["k2"] == [2, 2]
-    assert per_launch["k4_train"] == per_launch["k4_decode"] == [2]
-    assert sorted(per_launch["k1"]) == [1, 1, 2, 2]
-    assert sorted(per_launch["k3"]) == [1, 2]
-    assert [waits_inside(r, s) for s in r.spans
-            if s.name == "opt.update"] == [2]
-    inside = sum(sum(v) for v in per_launch.values())
-    assert r.total("host_wait") == inside + 2
-    assert inside == (2 * (launched["k2"] + launched["k4_train"]
-                           + launched["k4_decode"]
-                           + by_route["k1"]["resident"]
-                           + by_route["k3"]["resident"])
-                      + by_route["k1"]["rowgroup"]
-                      + by_route["k3"]["rowgroup"])
+
+    def one_pass():
+        before = {k: (w.launches, dict(getattr(w, "launches_by_route", {})))
+                  for k, w in routes.items()}
+        spans.clear()
+        spans.enable()
+        for T, B, U, P in ((9, 16, 256, 40), (9, 32, 256, 40),
+                           (9, 16, 760, 257), (9, 32, 760, 257)):
+            xw, lens, w_h, proj, bias, wi, wf_, wo = layer(T, B, U, P, bf16)
+            out, c, h, acts = ls.lstm_fwd(xw, lens, w_h, proj, bias, wi,
+                                          wf_, wo)
+            dout = u(T, B, P)
+            ls.lstm_layer_bwd(acts, lens, dout, c, h, w_h, proj, wi, wf_,
+                              wo)
+        x = u(9, 8, 40)
+        params = [{"kernel": u(80, 4 * 256), "bias": u(4 * 256),
+                   "proj_kernel": u(256, 40), "w_i_diag": u(1, 256),
+                   "w_f_diag": u(1, 256), "w_o_diag": u(1, 256)}
+                  for _ in range(2)]
+        xw1, wx, wh, proj, bias, wi, wf_, wo, _ = _kernel_args(x, params,
+                                                               1.0, bf16)
+        lens = torch.full((8,), 9, dtype=torch.int32, device=dev)
+        wf.lstm_wavefront_fwd_train(xw1, lens, x, wx, wh, proj, bias, wi,
+                                    wf_, wo, residual=False)
+        wf.lstm_wavefront_fwd(xw1, lens, x, wx, wh, proj, bias, wi, wf_, wo,
+                              residual=False)
+        net = NetState(torch.nn.Linear(3, 2).to(dev), "adam", 15.0)
+        net.apply_gradients({k: torch.ones_like(p) for k, p in
+                             net.params().items()}, 1e-3, 0.999)
+        torch.cuda.synchronize()
+        spans.disable()
+        r = spans.read()
+        launched = {k: w.launches - before[k][0] for k, w in routes.items()}
+        by_route = {k: {n: m - before[k][1].get(n, 0) for n, m in
+                        getattr(w, "launches_by_route", {}).items()}
+                    for k, w in routes.items()}
+        assert launched == {"k1": 4, "k2": 2, "k3": 2, "k4_train": 1,
+                            "k4_decode": 1}
+        assert by_route["k1"] == {"rowgroup": 2, "resident": 2}
+        assert by_route["k3"] == {"rowgroup": 1, "resident": 1}
+        per_launch = {k: [(inside(r, s, "host_wait"),
+                           inside(r, s, "launch.setup_miss"),
+                           inside(r, s, "launch.setup_hit"))
+                          for s in r.spans if s.name == f"launch.{k}"]
+                      for k in routes}
+        assert {k: len(v) for k, v in per_launch.items()} == launched
+        assert [inside(r, s, "host_wait") for s in r.spans
+                if s.name == "opt.update"] == [2]
+        waits = sum(w for v in per_launch.values() for w, _, _ in v)
+        assert r.total("host_wait") == waits + 2
+        return r, per_launch
+
+    # (host_wait, launch.setup_miss, launch.setup_hit) of each launch, in
+    # launch order: K1 on D at 16 and 32 rows, then at G width; K3 on D at
+    # 32 rows reads K1's 32 rows, K3's resident walk K2's 16-row G slices,
+    # K1 at G width at 32 rows its 16-row slices, K4 decode K4 train's
+    r, first = one_pass()
+    assert first == {"k1": [(1, 1, 0), (1, 1, 0), (2, 2, 0), (0, 0, 2)],
+                     "k2": [(2, 2, 0), (2, 2, 0)],
+                     "k3": [(0, 0, 1), (0, 0, 2)],
+                     "k4_train": [(2, 2, 0)], "k4_decode": [(0, 0, 2)]}
+    assert r.total("launch.setup_miss") == len(resident._CONSTANTS) == 10
     names = {s.name for s in r.spans}
     assert {"launch.plan", "launch.pack", "launch.upload",
             "launch.call"} <= names
+    r, second = one_pass()
+    assert second == {"k1": [(0, 0, 1), (0, 0, 1), (0, 0, 2), (0, 0, 2)],
+                      "k2": [(0, 0, 2), (0, 0, 2)],
+                      "k3": [(0, 0, 1), (0, 0, 2)],
+                      "k4_train": [(0, 0, 2)], "k4_decode": [(0, 0, 2)]}
+    assert r.total("host_wait") == 2 and r.units("launch.upload") == 0
+    assert len(resident._CONSTANTS) == 10

@@ -274,6 +274,22 @@ def test_profile_step_report_of_a_synthetic_trace(tmp_path, capsys):
         pytest.approx(0.3)
 
 
+def test_profile_step_prints_the_setup_hit_share(tmp_path, capsys):
+    """The share of reused device constants that a profiled run hands
+    ``report``, on the line after the launch setup's row."""
+    path = tmp_path / "trace.json"
+    synthetic_trace(path)
+    line = profile_step.report(str(path), 2, {
+        "launch_setup_hits": 199, "launch_setup_misses": 1,
+        "launch_setup_hit_share": 0.995})
+    text = capsys.readouterr().out.splitlines()
+    row = next(i for i, t in enumerate(text) if "(launch.call)" in t)
+    assert text[row + 1].split() == [
+        "0.9950", "share", "of", "the", "launches'", "device", "constants",
+        "reused", "(launch.setup_hit:", "199", "hits,", "1", "misses)"]
+    assert line["launch_setup_hit_share"] == 0.995
+
+
 def test_profile_step_on_the_cpu(tmp_path, capsys, monkeypatch):
     """A real trace (CPU activity, with_stack) of two full-width steps
     at B=2, T=6: the steps' ranges, and the host time in the port's
@@ -291,6 +307,9 @@ def test_profile_step_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert sum(by_fn.values()) <= out["wall_ms_per_step"] * 1.01
     # the program's spans are in the trace: the optimizer's host time
     assert out["host_split_ms_per_step"]["optimizer (opt.*)"] > 0
+    # the twins launch nothing: no device constant to count
+    assert (out["launch_setup_hits"], out["launch_setup_misses"],
+            out["launch_setup_hit_share"]) == (0, 0, None)
     again = profile_step.report(str(path), 2)
     assert again["host_ms_per_step_by_function"] == pytest.approx(by_fn)
 
