@@ -1032,6 +1032,26 @@ def run_sequence_training(args) -> int:
     return 0
 
 
+def frame_train_step(trainer, state, x: np.ndarray, y: np.ndarray,
+                     device: torch.device, hp: Dict[str, float], rand,
+                     g_lr: float) -> Dict[str, torch.Tensor]:
+    """One step of the frame loop on a host batch (this rank's rows):
+    ``x`` and ``y`` to ``device`` (``feed.to_device``; two copies from
+    pageable memory, each of which waits for the card's queue), then the
+    trainer's step: SEGAN's with ``hp`` and ``rand``, the source of its z
+    and D noise; the frame GAN's with ``hp``; the MSE trainer's at
+    ``g_lr``. Returns the step's metrics (device scalars)."""
+    with spans.span("feed.to_device"):
+        if device.type != "cpu":
+            spans.count("host_wait", 2)
+        x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    if isinstance(trainer, SeganTrainer):
+        return trainer.train_step(state, x, y, hp, rand)
+    if isinstance(trainer, GanTrainer):
+        return trainer.train_step(state, x, y, None, hp)
+    return trainer.train_step(state, x, y, None, g_lr)
+
+
 def run_frame_training(args) -> int:
     """The frame loop of the JAX CLI (``run_frame_training``) for
     --trainer=dnn, --trainer=gan_dnn and --trainer=segan, in f32:
@@ -1141,13 +1161,8 @@ def run_frame_training(args) -> int:
         start = datetime.datetime.now()
         tr_accum = []
         for x, y in ThreadedPrefetcher(batches(tr_batches, tr_view), 32):
-            xy = on_device(x, y)
-            if is_segan:
-                tr_accum.append(trainer.train_step(state, *xy, hp, rand))
-            elif is_gan:
-                tr_accum.append(trainer.train_step(state, *xy, None, hp))
-            else:
-                tr_accum.append(trainer.train_step(state, *xy, None, g_lr))
+            tr_accum.append(frame_train_step(trainer, state, x, y, device,
+                                             hp, rand, g_lr))
             snapper.maybe(state)
         if not tr_accum:
             log("ERROR: empty train batch stream")

@@ -20,6 +20,13 @@ from rsrgan_tpu_torch.data.splice import splice_frames_np
 from rsrgan_tpu_torch.data.store import UtteranceStore
 
 
+def _span(name: str):
+    """``spans.span(name)``, imported at the call: data preparation runs
+    without torch, which ``spans`` loads."""
+    from rsrgan_tpu_torch import spans
+    return spans.span(name)
+
+
 BUCKET_START = 200
 BUCKET_WIDTH = 50
 NUM_BUCKETS = 20
@@ -167,7 +174,8 @@ class FrameBatcher:
     fresh permutation of its rows from ``default_rng(seed)`` and cuts it
     into ``batch_size`` rows; ``drop_remainder`` drops the last partial
     batch. Batches are ``(inputs, labels)`` (labels None for a store
-    without them)."""
+    without them). The splice of the table and the gather of each batch
+    are ``feed.frames`` spans (``spans``)."""
 
     def __init__(self, store: UtteranceStore, batch_size: int,
                  left_context: int = 0, right_context: int = 0,
@@ -177,15 +185,16 @@ class FrameBatcher:
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
         self._rng = np.random.default_rng(seed)
-        ins, labs = [], []
-        for i in range(len(store)):
-            ins.append(splice_frames_np(np.asarray(store.inputs(i)),
-                                        left_context, right_context))
-            if store.has_labels:
-                labs.append(np.asarray(store.labels(i)))
-        self.inputs = np.concatenate(ins, axis=0).astype(np.float32)
-        self.labels = (np.concatenate(labs, axis=0).astype(np.float32)
-                       if labs else None)
+        with _span("feed.frames"):
+            ins, labs = [], []
+            for i in range(len(store)):
+                ins.append(splice_frames_np(np.asarray(store.inputs(i)),
+                                            left_context, right_context))
+                if store.has_labels:
+                    labs.append(np.asarray(store.labels(i)))
+            self.inputs = np.concatenate(ins, axis=0).astype(np.float32)
+            self.labels = (np.concatenate(labs, axis=0).astype(np.float32)
+                           if labs else None)
 
     @property
     def num_frames(self) -> int:
@@ -207,8 +216,9 @@ class FrameBatcher:
             yield order[start:start + self.batch_size]
 
     def _make_batch(self, sel: np.ndarray):
-        return (self.inputs[sel],
-                self.labels[sel] if self.labels is not None else None)
+        with _span("feed.frames"):
+            return (self.inputs[sel],
+                    self.labels[sel] if self.labels is not None else None)
 
     def __iter__(self):
         for sel in self.iter_index_batches():

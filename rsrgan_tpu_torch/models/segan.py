@@ -18,7 +18,11 @@ depth]``) hands in numbers another implementation drew.
 
 No Pallas kernel lies here: JAX computes these convolutions with
 ``lax.conv_general_dilated``, and the port with ``F.conv1d`` and
-``F.conv_transpose1d`` (``ops/modules.py``).
+``F.conv_transpose1d`` (``ops/modules.py``, which counts them by shape).
+
+Spans (``spans``): ``segan.g_enc`` (the auto-encoder's encoder and its
+z), ``segan.g_dec`` (its decoder and ``dec_out``), ``segan.d`` (D's
+forward) holding a ``segan.vbn`` for each virtual batch norm.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops.common import leakyrelu
 from rsrgan_tpu_torch.ops.modules import Conv1d, ConvTranspose1d, Dense
 from rsrgan_tpu_torch.parallel.mesh import (LocalDraws, current_world,
@@ -112,6 +117,10 @@ class VirtualBatchNorm(nn.Module):
         self.register_buffer("ref_meansq", torch.zeros(1, 1, channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with spans.span("segan.vbn"):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         world = current_world()
         rows = x.shape[0]
         if world.data_size > 1 and not self.capture:
@@ -175,6 +184,13 @@ class SeganAEGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor, z: NormalSource = None
                 ) -> torch.Tensor:
+        with spans.span("segan.g_enc"):
+            h, skips = self._encode(x, z)
+        with spans.span("segan.g_dec"):
+            return self._decode(h, skips)
+
+    def _encode(self, x: torch.Tensor, z: NormalSource):
+        """The encoder's code (with z before it) and its skips."""
         h = _as_channels(x)
         skips = []
         for i in range(len(self.enc_depths)):
@@ -188,6 +204,9 @@ class SeganAEGenerator(nn.Module):
             zt = draw_normal(z, shape, h.device)
             zt = (torch.zeros(shape, device=h.device) if zt is None else zt)
             h = torch.cat([zt.transpose(1, 2), h], dim=1)
+        return h, skips
+
+    def _decode(self, h: torch.Tensor, skips) -> torch.Tensor:
         last = len(self.dec_depths) - 1
         for i in range(len(self.dec_depths)):
             h = getattr(self, f"dec_{i}")(h)
@@ -290,13 +309,14 @@ class SeganDiscriminator(nn.Module):
                                 generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = _as_channels(x)
-        for i in range(len(self.num_fmaps)):
-            h = getattr(self, f"d_block_{i}")(h)
-            if self.use_vbn:
-                h = getattr(self, f"d_vbn_{i}")(h)
-            h = leakyrelu(h)
-        return self.logits_out(self.logits_conv(h)[:, 0])
+        with spans.span("segan.d"):
+            h = _as_channels(x)
+            for i in range(len(self.num_fmaps)):
+                h = getattr(self, f"d_block_{i}")(h)
+                if self.use_vbn:
+                    h = getattr(self, f"d_vbn_{i}")(h)
+                h = leakyrelu(h)
+            return self.logits_out(self.logits_conv(h)[:, 0])
 
     @torch.no_grad()
     def init_vbn_stats(self, x: torch.Tensor) -> None:

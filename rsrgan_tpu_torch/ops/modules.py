@@ -7,17 +7,24 @@ flax's ``batch_stats`` collection).
 
 A module whose buffers are a flax mutable collection names it in the
 class attribute ``flax_collection`` and its buffers in ``flax_stats``;
-``models/bridge.py`` carries them in and out of flax trees."""
+``models/bridge.py`` carries them in and out of flax trees.
+
+Every ``Conv1d`` and ``ConvTranspose1d`` forward is counted by shape in
+``conv_calls`` (``spans.count_launch``, as the hand kernels' wrappers
+count their launches; the key is ``conv_key``'s), from which the
+benchmark bounds the convolutions' time."""
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.ops.lstm import glorot_uniform_
 from rsrgan_tpu_torch.parallel.mesh import global_moments
 
@@ -71,6 +78,26 @@ def conv_transpose_pads(kwidth: int, stride: int) -> Tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
+# the 1-D convolutions' library calls in this process, by ``conv_key``
+conv_calls = SimpleNamespace(launches=0, launches_by_shape={})
+
+
+def conv_key(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+             transposed: bool) -> str:
+    """A 1-D convolution's shape key: in and out channels, width, stride,
+    input length and rows, whether it is transposed, whether autograd
+    records it for a backward (``grad``), and whether that backward
+    would take the input's gradient (``dx``). Which kernels get a
+    gradient is up to the ``autograd.grad`` call that runs the backward,
+    so the key does not say it."""
+    k, c_in, c_out = kernel.shape
+    grad = torch.is_grad_enabled() and (x.requires_grad
+                                        or kernel.requires_grad)
+    return (f"in={c_in},out={c_out},k={k},stride={stride},L={x.shape[-1]},"
+            f"rows={x.shape[0]},transposed={int(transposed)},"
+            f"grad={int(grad)},dx={int(grad and x.requires_grad)}")
+
+
 class Conv1d(nn.Module):
     """flax ``nn.Conv(out_ch, (kwidth,), strides=(stride,),
     kernel_dilation=(dilation,), padding="SAME")`` on ``[B, C, L]``
@@ -92,6 +119,8 @@ class Conv1d(nn.Module):
                      else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spans.count_launch(conv_calls, conv_key(x, self.kernel, self.stride,
+                                                False))
         pads = same_pads(x.shape[-1], self.kwidth, self.stride,
                          self.dilation)
         return F.conv1d(F.pad(x, pads), self.kernel.permute(2, 1, 0),
@@ -127,6 +156,8 @@ class ConvTranspose1d(nn.Module):
                      else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        spans.count_launch(conv_calls, conv_key(x, self.kernel, self.stride,
+                                                True))
         y = F.conv_transpose1d(
             x, self.kernel.flip(0).permute(1, 2, 0), self.bias,
             stride=self.stride, padding=self.padding,

@@ -32,6 +32,11 @@ the same collectives. Only ``all_reduce`` and ``broadcast`` are used:
 gloo runs nothing else on CUDA tensors. The world is process-wide, as
 ``torch.distributed``'s default group is: ``make_world`` sets it,
 ``current_world`` reads it.
+
+Each all-reduce is a ``comm.all_reduce`` span (``spans``: the host's
+enqueue of the collective; on NCCL the card's reduction runs later, in
+its own kernels) and adds its buffer's bytes to the ``comm.bytes``
+counter; neither synchronises.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.parallel.distributed import backend_for, card_identity
 
 
@@ -89,7 +95,9 @@ class DataWorld:
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        with spans.span("comm.all_reduce"):
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        spans.count("comm.bytes", x.numel() * x.element_size())
         self.collectives += 1
         if self.timed:
             self._sync()

@@ -9,7 +9,8 @@ and 0 (fake); G's loss is ``g_adv + hp["l1_lambda"] * mean|G - labels|``.
 One ``train_step`` is ``disc_updates`` D steps, each on a fresh G output
 (no gradient to G), then ``gen_updates`` G steps, metrics averaged. D
 sees real and fake in two calls: VBN's live statistics depend on the
-batch, so the two must not share one forward as LSTM-D's do.
+batch, so the two must not share one forward as LSTM-D's do. A G step
+asks autograd for G's gradients alone, so D's kernels get none.
 
 The latent z and D's input noise come from ``rand``
 (``models.segan.NormalSource``: a ``torch.Generator``, or a callable
@@ -25,6 +26,11 @@ the global batch: z and D's noise are this rank's rows of the draws at
 the global batch, VBN's live statistics are the global batch's, and each
 update's gradients and metrics are averaged over the world (eval
 metrics too).
+
+Spans (``spans``): ``train.step`` (the unit of work) holds each
+``train.d_update`` and ``train.g_update``, and each of those its
+``train.backward`` (``torch.autograd.grad``) and ``NetState``'s
+``opt.*``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Dict
 import torch
 from torch import nn
 
+from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.models.segan import NormalSource, draw_normal
 from rsrgan_tpu_torch.ops.common import gaussian_noise
 from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
@@ -97,9 +104,10 @@ class SeganTrainer:
         averaged over the data world with the gradients."""
         params = net.params()
         names = list(params)
+        with spans.span("train.backward"):
+            grads = torch.autograd.grad(loss, [params[n] for n in names])
         grads, metrics = world_mean(
-            dict(zip(names, torch.autograd.grad(
-                loss, [params[n] for n in names]))),
+            dict(zip(names, grads)),
             {k: v.detach() for k, v in metrics.items()})
         if self.grad_log is not None:
             self.grad_log.append((tag, {k: g.detach().clone()
@@ -112,23 +120,27 @@ class SeganTrainer:
                    ) -> Dict[str, torch.Tensor]:
         """disc_updates D steps, then gen_updates G steps, on one batch;
         returns the metrics (device scalars, averaged over the steps)."""
-        metrics: Dict[str, torch.Tensor] = {}
-        for _ in range(self.disc_updates):
-            with torch.no_grad():
-                g_out = self.generator(inputs, local_draws(rand))
-            d_loss, m = self._d_losses(g_out, inputs, labels, hp, rand)
-            m = self._update("d", state.d, d_loss, m, hp["d_lr"])
-            for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v / self.disc_updates
-        for _ in range(self.gen_updates):
-            g_loss, m = self._g_losses(
-                self.generator(inputs, local_draws(rand)), inputs, labels,
-                hp, rand)
-            m = self._update("g", state.g, g_loss, m, hp["g_lr"])
-            for k, v in m.items():
-                metrics[k] = metrics.get(k, 0.0) + v / self.gen_updates
-        state.step += 1
-        return metrics
+        with spans.span("train.step"):
+            metrics: Dict[str, torch.Tensor] = {}
+            for _ in range(self.disc_updates):
+                with spans.span("train.d_update"):
+                    with torch.no_grad():
+                        g_out = self.generator(inputs, local_draws(rand))
+                    d_loss, m = self._d_losses(g_out, inputs, labels, hp,
+                                               rand)
+                    m = self._update("d", state.d, d_loss, m, hp["d_lr"])
+                for k, v in m.items():
+                    metrics[k] = metrics.get(k, 0.0) + v / self.disc_updates
+            for _ in range(self.gen_updates):
+                with spans.span("train.g_update"):
+                    g_out = self.generator(inputs, local_draws(rand))
+                    g_loss, m = self._g_losses(g_out, inputs, labels, hp,
+                                               rand)
+                    m = self._update("g", state.g, g_loss, m, hp["g_lr"])
+                for k, v in m.items():
+                    metrics[k] = metrics.get(k, 0.0) + v / self.gen_updates
+            state.step += 1
+            return metrics
 
     @torch.no_grad()
     def eval_step(self, state: GanState, inputs, labels,
