@@ -38,7 +38,16 @@ JSON line each; any failure ends the run non-zero:
    bit-equal relaunches and beside the streaming kernels they replaced.
    Then all four at small odd shapes (U=13, P=9 and U=200, P=40; B=1, 3,
    33 and 64; a zero-length row), K1 also without its saved streams, on
-   its resident route launched directly, and at G's width.
+   its resident route launched directly, and at G's width. Then the
+   fused optimizer update (csrc/optim.cu, OPTIM_CASES) at the main
+   path's leaf shapes: res_lstm_l's G with Adam and clip 15 (also on
+   gradients that are views into one flat buffer, as all_reduce_mean
+   returns them), LSTM-D with SGD and clip 15, SEGAN's G and D with
+   RMSProp and strided convolution gradients; 3 updates against the
+   plain path (NetState.apply_plain) given the fused path's norms:
+   bit-equal, the norms within 1e-6, after the first update 2 launches
+   (FusedUpdate's count; 1 for RMSProp without the clip) and no
+   host_wait; both timed on the card and on the host.
 4. grad — gradients of the full-width G stack (B=16, and B=32 with K3's
    resident route in every layer) and of D (16 and 32 rows) through the
    kernels' autograd Functions against the eager cell under autograd,
@@ -255,10 +264,17 @@ JSON line each; any failure ends the run non-zero:
    K3 nowhere. Then each kernel at every shape the recipes launched
    (T=EXP_T, ragged rows) against its twin, f32 and bf16.
 
+Every CLI training run (``with_optim_counts``) arms the spans and counts
+the fused optimizer's launches and its updates on each path: one update
+on the plain path on the card fails the run (only the tensor-parallel
+steps of the parallel phase take it, by design).
+
 Then a "timing" line (each phase's wall seconds and the total), a
 {"kernels": [...]} line (one entry more per shape the chains, the
 data-parallel ranks, the measurement tools and the experiment recipes
-launched, with ``launches_chain``, ``launches_parallel``,
+launched, and one per net of the fused optimizer's check, its launches
+from the train and segan phases' epochs, with ``launches_chain``,
+``launches_parallel``,
 ``launches_tools`` or ``launches_experiments``, its launches at that
 shape in each run; null on the other entries; K3's entries with
 ``library_ms`` and ``library_bf16_ms``, its reduction by the library
@@ -1072,6 +1088,174 @@ def phase_kernels_train_small() -> dict:
     return out
 
 
+# The fused optimizer update (csrc/optim.cu) at the main path's leaf
+# shapes: (net, optimizer, clip, the gradients' layout) as the three
+# configurations train them. res_lstm_l's G with Adam and clip 15, also
+# with its gradients as views into one flat buffer (all_reduce_mean's);
+# LSTM-D with SGD and clip 15; SEGAN's G and D with RMSProp, no clip,
+# each 3-D leaf's gradient strided as a convolution kernel's is.
+SEGAN_DEPTHS = [16, 32, 32, 64, 64, 128, 128, 256, 256, 512, 1024]
+OPTIM_CASES = (("G", "adam", 15.0, "own"), ("G", "adam", 15.0, "flat"),
+               ("D", "sgd", 15.0, "own"), ("segan_G", "rmsprop", None, "conv"),
+               ("segan_D", "rmsprop", None, "conv"))
+OPTIM_UPDATES = 3     # checked against the plain path
+OPTIM_TIMED = 20      # back-to-back updates a timing window
+# bytes an element an update moves (f32): the clip's read of g, then g,
+# p, the moments and the shadow read and p, the moments, the shadow
+# written; a strided gradient's copy apart
+OPTIM_BYTES = {("adam", True): 40, ("sgd", True): 24, ("rmsprop", False): 28}
+
+
+def optim_leaf_shapes(net: str) -> list:
+    import torch
+    from rsrgan_tpu_torch.models import get_discriminator, get_generator
+    from rsrgan_tpu_torch.models.segan import (SeganAEGenerator,
+                                               SeganDiscriminator)
+    make = {"G": lambda: get_generator("res_lstm_l", input_dim=P,
+                                       output_dim=OUT),
+            "D": lambda: get_discriminator("lstm", input_dim=OUT),
+            "segan_G": lambda: SeganAEGenerator(
+                (2 * SEGAN_CONTEXT + 1) * P, OUT, enc_depths=SEGAN_DEPTHS,
+                bias_deconv=True),
+            "segan_D": lambda: SeganDiscriminator(
+                (2 * SEGAN_CONTEXT + 1) * P + OUT, num_fmaps=SEGAN_DEPTHS)}
+    with torch.device("meta"):
+        return [tuple(p.shape) for p in make[net]().parameters()]
+
+
+def optim_grads(shapes, step, layout):
+    """Seeded gradients at ``shapes``: the last leaf's zero, every third
+    leaf's norm under the clip of 15 and the rest over it; ``layout``
+    ``flat``: views into one buffer; ``conv``: a 3-D leaf's the reverse
+    permutation of a contiguous tensor."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    out = []
+    for i, shape in enumerate(shapes):
+        if layout == "conv" and len(shape) == 3:
+            g = torch.randn(shape[::-1], generator=gen,
+                            device="cuda").permute(2, 1, 0)
+        else:
+            g = torch.randn(shape, generator=gen, device="cuda")
+        n = max(g.numel(), 1) ** 0.5
+        g *= 0.0 if i == len(shapes) - 1 else 2.0 / n if i % 3 == 0 else 40 / n
+        out.append(g)
+    if layout == "flat":
+        buf = torch.cat([g.reshape(-1) for g in out])
+        at, views = 0, []
+        for g in out:
+            views.append(buf[at:at + g.numel()].view(g.shape))
+            at += g.numel()
+        out = views
+    return out
+
+
+def optim_case(net, name, max_norm, layout) -> dict:
+    """One net's update on the fused path against the plain path
+    (``NetState.apply_plain``, the twin) fed the same gradients clipped
+    with the fused path's norms, OPTIM_UPDATES times from the same
+    parameters: parameters, moments, Adam's count and shadow bit-equal,
+    the norms within 1e-6 of the plain path's own; after the first update
+    no ``host_wait``, one ``opt.fused``, and the launches
+    ``FusedUpdate`` counts (2 an update; 1 for RMSProp without the clip);
+    then both timed on the card over OPTIM_TIMED updates, and the fused
+    update's host ms to issue them."""
+    import torch
+    from rsrgan_tpu_torch import spans
+    from rsrgan_tpu_torch.ops import optim
+    from rsrgan_tpu_torch.training.state import NetState
+    shapes = optim_leaf_shapes(net)
+
+    def state(clip):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        m = torch.nn.Module()
+        for i, shape in enumerate(shapes):
+            m.register_parameter(f"w{i}", torch.nn.Parameter(torch.randn(
+                shape, generator=gen, device="cuda") * 0.05))
+        return NetState(m, name, clip)
+
+    fused, plain = state(max_norm), state(None)
+    keys = list(fused.params())
+    per_update = 2 if (max_norm is not None or name == "adam") else 1
+    errs, norm_errs, counted, host_waits = [], [], [], []
+    for step in range(OPTIM_UPDATES):
+        grads = dict(zip(keys, optim_grads(shapes, step, layout)))
+        before = optim.FusedUpdate.launches
+        spans.clear()
+        spans.enable()
+        fused.apply_gradients(grads, 1e-3, 0.9999)
+        spans.disable()
+        r = spans.read()
+        counted.append((optim.FusedUpdate.launches - before,
+                        r.total("opt.fused"), r.total("opt.plain")))
+        host_waits.append(r.total("host_wait"))
+        norms = fused._fused_update.norms.clone()
+        if max_norm is not None:
+            want = torch.stack([torch.sqrt(torch.sum(torch.square(g)))
+                                for g in grads.values()])
+            norm_errs.append(float(((norms - want).abs()
+                                    / want.clamp(min=1e-30)).max()))
+            grads = {k: g * (max_norm / torch.clamp(n, min=max_norm))
+                     for (k, g), n in zip(grads.items(), norms)}
+        plain.apply_plain(plain.params(), grads, 1e-3, 0.9999)
+        torch.cuda.synchronize()
+        pairs = [(fused.params()[k], plain.params()[k]) for k in keys]
+        pairs += [(fused.ema[k], plain.ema[k]) for k in keys]
+        pairs += [(fused.opt_state[f][k], plain.opt_state[f][k])
+                  for f in ("mu", "nu") if f in plain.opt_state for k in keys]
+        errs.append(max(float((a - b).detach().abs().max())
+                        for a, b in pairs))
+    count_ok = (name != "adam"
+                or int(fused.opt_state["count"])
+                == int(plain.opt_state["count"]) == OPTIM_UPDATES)
+    grads = dict(zip(keys, optim_grads(shapes, OPTIM_UPDATES, layout)))
+    ms, host_ms = device_and_host_ms(
+        lambda: fused.apply_gradients(grads, 1e-3, 0.9999), OPTIM_TIMED)
+    plain_ms, plain_host_ms = device_and_host_ms(
+        lambda: plain.apply_plain(plain.params(), grads, 1e-3, 0.9999), 5)
+    elements = sum(int(np.prod(s)) for s in shapes)
+    nbytes = OPTIM_BYTES[(name, max_norm is not None)] * elements
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {"phase": "kernels_train", "kernel": "optim_update", "net": net,
+           "optimizer": name, "clip": max_norm, "layout": layout,
+           "leaves": len(shapes), "elements": elements,
+           "bit_equal": max(errs) == 0.0, "max_abs_err": max(errs),
+           "norm_max_rel_err": max(norm_errs, default=None),
+           "launches_per_update": [c[0] for c in counted],
+           "host_waits": host_waits, "ms": ms, "host_ms": host_ms,
+           "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "bound_bytes": nbytes,
+           "ok": (max(errs) == 0.0 and count_ok
+                  and all(e <= 1e-6 for e in norm_errs)
+                  and all(c == (per_update, 1, 0) for c in counted[1:])
+                  and not any(host_waits[1:]))}
+    emit(out)
+    return out
+
+
+def device_and_host_ms(fn, reps: int) -> tuple:
+    """ms a call of ``fn`` over ``reps`` back-to-back calls: on the card
+    (CUDA events around them) and on the host to issue them."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
+def phase_kernels_train_optim() -> list:
+    """The fused optimizer update at every OPTIM_CASES net's leaf
+    shapes against its plain twin (``optim_case``)."""
+    return [optim_case(*case) for case in OPTIM_CASES]
+
+
 def rel_errs(got: dict, want: dict) -> dict:
     return {k: float((got[k] - want[k]).detach().abs().max())
             / max(float(want[k].detach().abs().max()), 1e-30) for k in want}
@@ -1445,13 +1629,13 @@ def profile_train_step(tr_list: str, rows: int, counters: dict) -> dict:
             by_kernel[key] = by_kernel.get(key, 0.0) + us / 1e3
     device_ms = sum(by_kernel.values())
     # lstm_bwd_resident_kernel<W, acc>: K2 (acc=false), and K3's walk in
-    # acc mode; the profiled steps run bf16
+    # acc mode; the profiled steps run bf16; the fused optimizer's two
     ours = {name: sum(v for k, v in by_kernel.items() if name in k)
             for name in ("wavefront_resident_kernel",
                          K2_BF16_KERNEL, K3_WALK_BF16_KERNEL,
                          "lstm_fwd_rowgroup_kernel",
                          "lstm_bwd_rowgroup_kernel", "lstm_wgrad_kernel",
-                         "lstm_bwd_kernel")}
+                         "lstm_bwd_kernel", "sumsq_kernel", "update_kernel")}
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
     return {"T": int(args[0].shape[1]), "B": rows,
             "true_frames": int(args[2].sum()), "launches": launches,
@@ -1494,17 +1678,46 @@ def step_peak_bytes(tr_list: str, rows: int) -> int:
     return int(torch.cuda.max_memory_allocated() - base)
 
 
+def with_optim_counts(fn) -> tuple:
+    """``fn()`` with the fused optimizer's launch counts
+    (``FusedUpdate``: all, and by ``"<kind> leaves=<n>"``) set to 0 and
+    the spans armed; (its result, the counts with the updates on the
+    fused and the plain path). Every update of a training run on the
+    card must be fused: one on the plain path raises."""
+    import torch
+    from rsrgan_tpu_torch import spans
+    from rsrgan_tpu_torch.ops import optim
+    counts = {"launches": (optim.FusedUpdate, "launches"),
+              "by_shape": (optim.FusedUpdate, "launches_by_shape")}
+    reset_counts(counts)
+    spans.clear()
+    spans.enable()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        spans.disable()
+    r = spans.read()
+    spans.clear()
+    counts = {**read_counts(counts), "fused_updates": r.total("opt.fused"),
+              "plain_updates": r.total("opt.plain")}
+    if counts["plain_updates"]:
+        raise RuntimeError(f"an update took the plain optimizer path on "
+                           f"the card: {counts}")
+    return out, counts
+
+
 def cli_epoch(train_cli, counters, flags) -> tuple:
     """One CLI training epoch with every launch count set to 0 just
     before it; (its last train and eval metrics rows, the counts, wall
-    seconds)."""
-    import torch
+    seconds). The counts hold ``optim``, the fused optimizer's
+    (``with_optim_counts``)."""
     reset_counts(counters)
     t0 = time.monotonic()
-    rc = train_cli.main(flags)
-    torch.cuda.synchronize()
+    rc, optim_counts = with_optim_counts(lambda: train_cli.main(flags))
     secs = time.monotonic() - t0
     launches = read_counts(counters)
+    launches["optim"] = optim_counts
     if rc != 0:
         raise RuntimeError(f"training {flags[-3:]} returned {rc}")
     save_dir = next(f.split("=", 1)[1] for f in flags
@@ -2575,6 +2788,7 @@ def phase_segan(work: str, prepared: dict) -> dict:
            "checkpoint": ckpt, "decode": decode,
            "tf32_off_after_cli": tf32_off,
            "hand_kernel_launches": hand_launches(launches),
+           "optim_launches": launches["optim"],
            "profiled_steps": window, "wave_parity_f32_card_vs_cpu": wave,
            "name, power.limit": card_name_and_limit()}
     out["ok"] = (parity["ok"] and wave["ok"] and finite_losses(row, cv_row)
@@ -2808,10 +3022,9 @@ def counted_train_cli(counts_path: str, argv: list) -> int:
     from rsrgan_tpu_torch.cli import train as train_cli
     counters = chain_counters()
     reset_counts(counters)
-    rc = train_cli.main(argv)
-    torch.cuda.synchronize()
+    rc, optim_counts = with_optim_counts(lambda: train_cli.main(argv))
     with open(counts_path, "w") as f:
-        json.dump(read_counts(counters), f)
+        json.dump({**read_counts(counters), "optim": optim_counts}, f)
     return rc
 
 
@@ -3905,10 +4118,12 @@ def run_cli(main, argv) -> tuple:
 
 
 def hand_launches(counts: dict) -> int:
-    """Every launch of every hand kernel in a read_counts() result."""
+    """Every launch of every LSTM hand kernel in a read_counts() result
+    (cli_epoch's ``optim``, the optimizer's, apart)."""
     return sum(sum(v.values()) if isinstance(v, dict) else v
                for k, v in counts.items()
-               if not k.endswith(("_by_shape", "_resident", "_streaming")))
+               if k != "optim"
+               and not k.endswith(("_by_shape", "_resident", "_streaming")))
 
 
 def chunk_timing(enh, x: np.ndarray, rows: int, timed: int,
@@ -4830,7 +5045,9 @@ def kernel_entry(name, source, replaces, launches, launches_per, result,
                                     "reduction_ms", "walk_bound_ms",
                                     "reduction_bound_ms", "library_ms",
                                     "library_bf16_ms",
-                                    "library_max_abs_diff", "library_of")
+                                    "library_max_abs_diff", "library_of",
+                                    "host_ms", "plain_host_ms",
+                                    "bound_bytes")
              if k in result}
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4951,6 +5168,31 @@ def kernels_line(results: dict) -> dict:
                     entry["launches_rnn_dropout"] = results["train_mse"][
                         "dropout"]["k1_g_width_launches"]
             entries.append(entry)
+    if "kernels_train_optim" in results:
+        # the fused optimizer update: its launches in the flagship's
+        # main-path epoch (G's Adam, D's SGD) and SEGAN's epoch (RMSProp)
+        runs = {"G": ("train", "train epoch at B=16, device feed (8 "
+                      "iterations: 2 G updates and 1 D update each)"),
+                "D": ("train", "the same epoch"),
+                "segan_G": ("segan", "the segan epoch (run_segan.sh's "
+                            "flags)"),
+                "segan_D": ("segan", "the same epoch")}
+        for r in results["kernels_train_optim"]:
+            if r["layout"] == "flat":
+                continue
+            phase, per = runs[r["net"]]
+            counts = (results[phase]["launches"]["optim"] if phase == "train"
+                      else results[phase]["optim_launches"])
+            entries.append(kernel_entry(
+                f"optim_update ({r['optimizer']}"
+                f"{', clip 15' if r['clip'] else ''}, {r['net']}: "
+                f"{r['leaves']} leaves, {r['elements']} elements; "
+                "sumsq_kernel then update_kernel)",
+                "rsrgan_tpu_torch/csrc/optim.cu",
+                "none (optax's per-leaf update, rsrgan_tpu/training/"
+                "state.py, left to XLA)",
+                counts["by_shape"].get(
+                    f"{r['optimizer']} leaves={r['leaves']}", 0), per, r, r))
     for entry in entries:
         entry["launches_chain"] = None  # shapes the chains do not run
     if "chain" in results:
@@ -5077,8 +5319,11 @@ def main(argv=None) -> int:
             d: clocked("kernels_train", phase_kernels_train, d)
             for d in ("float32", "bfloat16")}
         small = clocked("kernels_train", phase_kernels_train_small)
+        results["kernels_train_optim"] = clocked(
+            "kernels_train", phase_kernels_train_optim)
         oks += [r["ok"] for rs in results["kernels_train"].values()
                 for r in rs] + [small["ok"]]
+        oks += [r["ok"] for r in results["kernels_train_optim"]]
     if "grad" in phases:
         oks.append(clocked("grad", phase_grad)["ok"])
     with tempfile.TemporaryDirectory() as work:
@@ -5101,8 +5346,9 @@ def main(argv=None) -> int:
             oks.append(clocked("train_frame", phase_train_frame, work,
                                prepared["lists"])["ok"])
         if "segan" in phases:
-            oks.append(clocked("segan", phase_segan, work,
-                               prepared["lists"])["ok"])
+            results["segan"] = clocked("segan", phase_segan, work,
+                                       prepared["lists"])
+            oks.append(results["segan"]["ok"])
         if "parallel" in phases:
             results["parallel"] = clocked("parallel", phase_parallel, work,
                                           prepared["lists"])

@@ -62,10 +62,11 @@ from typing import Dict, List, Optional
 import numpy as np
 
 # the kernels of csrc/resident.cu, csrc/wavefront_fwd.cu, csrc/lstm_bwd.cu
+# and csrc/optim.cu
 HAND_KERNELS = ("wavefront_resident_kernel", "lstm_fwd_rowgroup_kernel",
                 "lstm_bwd_resident_kernel", "lstm_bwd_rowgroup_kernel",
                 "lstm_wgrad_kernel", "wavefront_fwd_kernel",
-                "lstm_bwd_kernel")
+                "lstm_bwd_kernel", "sumsq_kernel", "update_kernel")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CALLS = re.compile(r"^(cudaLaunch|cuLaunch)")
 # runtime calls that return only when the device (or a copy from pageable

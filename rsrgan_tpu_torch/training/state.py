@@ -26,6 +26,16 @@ the block, and the blocks gathered back into the module's whole
 parameter over the model group (``gather_blocks``, exact). Every step
 after the clip is elementwise, so the step equals the data-parallel one
 bit for bit.
+
+On the card (``ops/optim.py``, ``csrc/optim.cu``) the update of a state
+that is not sharded is one multi-tensor kernel for the clip's partial
+norms and Adam's step count and one for the rest: the same arithmetic in
+the same order, bit for bit given the same norms, with Adam's bias
+correction computed on the card. It takes contiguous f32 parameters,
+moments and shadow and f32 gradients (a strided one is copied to its
+leaf's order) and raises on anything else. The plain tensor code below
+is the kernel's twin and the update of the CPU and of tensor-parallel
+states (``fused_path``).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from torch import nn
 from rsrgan_tpu_torch import spans
 from rsrgan_tpu_torch.models.bridge import (collections_tree,
                                             load_collections)
+from rsrgan_tpu_torch.ops import optim
 from rsrgan_tpu_torch.parallel.mesh import (all_reduce_mean, current_world,
                                             gather_blocks,
                                             lstm_param_sharding,
@@ -135,6 +146,15 @@ def world_mean(grads: Tree, metrics: Tree) -> tuple:
             {k: tree["metric/" + k] for k in metrics})
 
 
+def fused_path(device: torch.device, sharded: bool) -> bool:
+    """Whether ``NetState.apply_gradients`` runs csrc/optim.cu: for every
+    state on the card but a tensor-parallel one. That one keeps the plain
+    per-leaf code by design: its clip reads the whole gradients and its
+    update this rank's blocks, cut and gathered around it (no benchmark
+    cell runs it)."""
+    return device.type == "cuda" and not sharded
+
+
 def make_optimizer(name: str):
     if name == "adam":
         return Adam()
@@ -158,6 +178,9 @@ class NetState:
         self.tx = make_optimizer(optimizer)
         self.max_grad_norm = max_grad_norm
         self.shards: Dict[str, int] = {}
+        # the fused update and the storages it was made for (``apply_fused``)
+        self._fused_key: Optional[tuple] = None
+        self._fused_update: Optional[optim.FusedUpdate] = None
         with torch.no_grad():
             self.opt_state = self.tx.init(self.params())
             self.ema = {k: p.detach().clone()
@@ -244,6 +267,43 @@ class NetState:
     @torch.no_grad()
     def apply_gradients(self, grads: Tree, lr: float,
                         ema_decay: float) -> None:
+        params = self.params()
+        first = next(iter(params.values()), None)
+        if first is not None and fused_path(first.device, bool(self.shards)):
+            self.apply_fused(params, grads, lr, ema_decay)
+        else:
+            self.apply_plain(params, grads, lr, ema_decay)
+
+    @torch.no_grad()
+    def apply_fused(self, params: Tree, grads: Tree, lr: float,
+                    ema_decay: float) -> None:
+        """The update through csrc/optim.cu (``optim.FusedUpdate``), made
+        again (its tables copied to the card) when the storage of a
+        parameter, moment or shadow changed; raises ValueError where a
+        tensor does not fit the kernel."""
+        spans.count("opt.fused")
+        with spans.span("opt.setup"):
+            mu, nu = self.opt_state.get("mu"), self.opt_state.get("nu")
+            leaves = {k: (p, None if mu is None else mu[k],
+                          None if nu is None else nu[k], self.ema[k])
+                      for k, p in params.items()}
+            key = tuple(0 if t is None else t.data_ptr()
+                        for leaf in leaves.values() for t in leaf)
+            if key != self._fused_key:
+                self._fused_update = optim.FusedUpdate(
+                    leaves, self.tx.name, vars(self.tx))
+                self._fused_key = key
+            fused = self._fused_update
+            fused.take_grads([grads[k] for k in params])
+        fused.apply(list(params.values()), self.opt_state.get("count"), lr,
+                    ema_decay, self.max_grad_norm)
+
+    @torch.no_grad()
+    def apply_plain(self, params: Tree, grads: Tree, lr: float,
+                    ema_decay: float) -> None:
+        """The plain per-leaf update: the clip, the transform, the step and
+        the EMA, one PyTorch kernel per leaf and operation."""
+        spans.count("opt.plain")
         with spans.span("opt.clip"):
             grads = clip_by_norm_each(grads, self.max_grad_norm)
             if self.shards:
@@ -252,7 +312,7 @@ class NetState:
             updates = self.tx.update(grads, self.opt_state)
         with spans.span("opt.apply"):
             gathered = []
-            for k, p in self.params().items():
+            for k, p in params.items():
                 if k in self.shards:
                     whole, axis = p, self.shards[k]
                     p = model_block(current_world(), whole, axis).clone()

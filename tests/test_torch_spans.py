@@ -352,9 +352,11 @@ def test_host_waits_per_launch_match_the_launch_counters(record,
     K1/K3 launch, the rows of a row-group K1/K3 launch) that no launch
     before it copied, one ``host_wait`` and one ``launch.setup_miss``
     each; second pass: no launch copies anything, each reuses its two
-    constants or its one (``launch.setup_hit``). An Adam update makes two
-    ``host_wait`` (its two scalars) in each pass. The launch spans hold
-    the plan, the packing, the uploads and the call."""
+    constants or its one (``launch.setup_hit``). An Adam update of one
+    state, on the fused path (``ops/optim.py``), copies its tables in its
+    first update (one ``host_wait``, in ``opt.upload``) and nothing in the
+    second. The launch spans hold the plan, the packing, the uploads and
+    the call."""
     from rsrgan_tpu_torch.ops import lstm_seq as ls
     from rsrgan_tpu_torch.ops import resident
     from rsrgan_tpu_torch.ops import wavefront as wf
@@ -377,8 +379,9 @@ def test_host_waits_per_launch_match_the_launch_counters(record,
     routes = {"k1": ls.lstm_fwd, "k2": ls.lstm_bwd, "k3": ls.lstm_bwd_acc,
               "k4_train": wf.lstm_wavefront_fwd_train,
               "k4_decode": wf.lstm_wavefront_fwd}
+    net = NetState(torch.nn.Linear(3, 2).to(dev), "adam", 15.0)
 
-    def one_pass():
+    def one_pass(table_copies):
         before = {k: (w.launches, dict(getattr(w, "launches_by_route", {})))
                   for k, w in routes.items()}
         spans.clear()
@@ -403,7 +406,6 @@ def test_host_waits_per_launch_match_the_launch_counters(record,
                                     wf_, wo, residual=False)
         wf.lstm_wavefront_fwd(xw1, lens, x, wx, wh, proj, bias, wi, wf_, wo,
                               residual=False)
-        net = NetState(torch.nn.Linear(3, 2).to(dev), "adam", 15.0)
         net.apply_gradients({k: torch.ones_like(p) for k, p in
                              net.params().items()}, 1e-3, 0.999)
         torch.cuda.synchronize()
@@ -424,16 +426,19 @@ def test_host_waits_per_launch_match_the_launch_counters(record,
                       for k in routes}
         assert {k: len(v) for k, v in per_launch.items()} == launched
         assert [inside(r, s, "host_wait") for s in r.spans
-                if s.name == "opt.update"] == [2]
+                if s.name == "opt.upload"] == [1] * table_copies
+        assert [inside(r, s, "host_wait") for s in r.spans
+                if s.name in ("opt.clip", "opt.update")] == [0, 0]
+        assert r.total("opt.fused") == 1
         waits = sum(w for v in per_launch.values() for w, _, _ in v)
-        assert r.total("host_wait") == waits + 2
+        assert r.total("host_wait") == waits + table_copies
         return r, per_launch
 
     # (host_wait, launch.setup_miss, launch.setup_hit) of each launch, in
     # launch order: K1 on D at 16 and 32 rows, then at G width; K3 on D at
     # 32 rows reads K1's 32 rows, K3's resident walk K2's 16-row G slices,
     # K1 at G width at 32 rows its 16-row slices, K4 decode K4 train's
-    r, first = one_pass()
+    r, first = one_pass(1)
     assert first == {"k1": [(1, 1, 0), (1, 1, 0), (2, 2, 0), (0, 0, 2)],
                      "k2": [(2, 2, 0), (2, 2, 0)],
                      "k3": [(0, 0, 1), (0, 0, 2)],
@@ -442,10 +447,10 @@ def test_host_waits_per_launch_match_the_launch_counters(record,
     names = {s.name for s in r.spans}
     assert {"launch.plan", "launch.pack", "launch.upload",
             "launch.call"} <= names
-    r, second = one_pass()
+    r, second = one_pass(0)
     assert second == {"k1": [(0, 0, 1), (0, 0, 1), (0, 0, 2), (0, 0, 2)],
                       "k2": [(0, 0, 2), (0, 0, 2)],
                       "k3": [(0, 0, 1), (0, 0, 2)],
                       "k4_train": [(0, 0, 2)], "k4_decode": [(0, 0, 2)]}
-    assert r.total("host_wait") == 2 and r.units("launch.upload") == 0
+    assert r.total("host_wait") == 0 and r.units("launch.upload") == 0
     assert len(resident._CONSTANTS) == 10
